@@ -10,7 +10,11 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    (one ``nvcc`` per source, started together);
 3. each kernel against its plain PyTorch version, bitwise, on the card:
    (n, G) from 1 to 2^20 groups, specs L=1/2/3 at W=18 and L=2 at W=12,
-   pruned level windows, denormals, ±cancellation and mixed magnitudes;
+   pruned level windows, denormals, ±cancellation and mixed magnitudes,
+   ragged row counts, 1 to 8 columns, G on each side of the segment
+   kernel's path limits, padding ids and views not 16-byte aligned
+   (``nvcc -Xptxas -v``'s registers and spills of every kernel are printed
+   after the build);
 4. the main path through ``repro_torch.ops.groupby_agg`` at the size users
    run: TPC-H Q1 at scale factor 10 (59,986,052 lineitem rows, 4 groups,
    the aggregate list of ``examples/groupby_analytics.py``) through the
@@ -18,11 +22,16 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    and Q18's inner ``GROUP BY l_orderkey`` at SF10 (15,000,000 groups); row
    permutations, strategies and a CPU run of a 2^20-row subset must give
    byte-identical results and table digests;
-5. CUDA-event times (medians) of each kernel, its plain version, the
-   end-to-end ``groupby_agg`` and the conventional float32 ``index_add_``
-   GROUPBY of the same columns — the non-reproducible yardstick — and one
-   profiled Q1 call: device time per operation and the device's idle
-   share.
+5. CUDA-event times (medians) of each kernel (per launch over a run of
+   launches, and for one call with its host work), its plain version, the
+   one PyTorch call that computes the same function (timed in turns with
+   the rsum kernel), the segment kernel's tiled path at Q18's 15,000,000
+   groups and at Q9's ``GROUP BY nation, o_year`` (175 groups over SF10's
+   lineitem rows of green parts, in lineitem order and sorted by group),
+   the end-to-end ``groupby_agg`` and the conventional
+   float32 ``index_add_`` GROUPBY of the same columns — the
+   non-reproducible yardstick — and one profiled Q1 call: device time per
+   operation and the device's idle share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  Without a CUDA device, or without the
@@ -55,6 +64,12 @@ FLAT_AGGS = [("sum", 0), ("sum", 1), ("sum_prod", 1, 2), ("mean", 0),
 # Q1's groups (returnflag, linestatus): A-F, N-F, N-O, R-F, with the shares
 # of TPC-H's Q1 answer at SF1
 Q1_SHARES = (0.2499, 0.0066, 0.4936, 0.2499)
+# Q9: o_orderdate's days in each year 1992..1998 (dbgen draws it uniformly
+# from 1992-01-01 to 1998-08-02, i.e. ENDDATE - 151 days), and the share of
+# parts with 'green' in p_name (5 distinct words of dbgen's 92 colors)
+Q9_YEAR_DAYS = (366, 365, 365, 365, 366, 365, 214)
+Q9_NATIONS = 25
+Q9_GREEN = 5 / 92
 
 
 class SmokeFailure(RuntimeError):
@@ -77,8 +92,11 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
-    """Median CUDA-event time of ``fn`` in milliseconds."""
+def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1, batch: int = 1):
+    """Median CUDA-event time of one call of ``fn`` in milliseconds.  With
+    ``batch`` > 1 the events bracket that many calls back to back and the
+    time is divided by them: the host's work for one call then overlaps
+    the device's for the previous, so what remains is device time."""
     for _ in range(warmup):
         fn()
     times = []
@@ -86,11 +104,22 @@ def cuda_ms(torch, fn, reps: int = 5, warmup: int = 1) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def paired_ms(torch, kernel, library, batch: int) -> tuple[float, float]:
+    """(kernel, library) times in one window order library, kernel, kernel,
+    library; each the mean of its two medians."""
+    lib1 = cuda_ms(torch, library, reps=10, batch=batch)
+    k1 = cuda_ms(torch, kernel, reps=10, batch=batch)
+    k2 = cuda_ms(torch, kernel, reps=10, batch=batch)
+    lib2 = cuda_ms(torch, library, reps=10, batch=batch)
+    return (k1 + k2) / 2, (lib1 + lib2) / 2
 
 
 def host_ms(torch, fn, reps: int = 3) -> float:
@@ -138,24 +167,53 @@ def kernel_cases(torch, np, dev, R, S, acc, prescan, ReproSpec):
     """Every kernel against its plain version; returns the max |diff|."""
     specs = [ReproSpec(L=1), ReproSpec(L=2), ReproSpec(L=3),
              ReproSpec(L=2, W=12)]
-    cases = [  # n, G, ncols, kind, group tile cap
-        (1, 1, 1, "wide", None),
-        (1000, 16, 3, "wide", None),
-        (100_003, 700, 6, "mixed", None),
-        (300_001, 4, 6, "cancel", None),
-        (200_000, 8, 2, "denormal", None),
-        (20_000, 300, 2, "wide", 8),
-        (1 << 20, 1 << 20, 1, "wide", None),
-        (400_000, 1 << 16, 2, "ints", None),
+    cases = [  # n, G, ncols, kind, group tile cap, padding share, unaligned
+        (1, 1, 1, "wide", None, 0.0, False),
+        (1000, 16, 3, "wide", None, 0.0, False),
+        (100_003, 700, 6, "mixed", None, 0.0, False),
+        (300_001, 4, 6, "cancel", None, 0.0, False),
+        (200_000, 8, 2, "denormal", None, 0.0, False),
+        (20_000, 300, 2, "wide", 8, 0.0, False),
+        (1 << 20, 1 << 20, 1, "wide", None, 0.0, False),
+        (400_000, 1 << 16, 2, "ints", None, 0.0, False),
+        # ragged row counts around the 4-row and 16-byte vector edges, and
+        # every column count of the rsum mapping and the private templates
+        (3, 3, 3, "wide", None, 0.0, False),
+        (5, 3, 4, "mixed", None, 0.0, False),
+        (4097, 3, 5, "wide", None, 0.0, False),
+        (4097, 5, 7, "cancel", None, 0.0, False),
+        (5, 2, 8, "wide", None, 0.0, False),
+        (4097, 4, 6, "wide", None, 0.1, False),
+        # views whose data_ptr is not 16-byte aligned: private and tiled
+        (100_003, 4, 6, "mixed", None, 0.0, True),
+        (10_001, 700, 5, "wide", None, 0.05, True),
+        (4097, 20_000, 1, "wide", None, 0.0, True),
     ]
     worst, count = 0, 0
     for si, spec in enumerate(specs):
-        for ci, (n, g, ncols, kind, tile) in enumerate(cases):
-            x = torch.from_numpy(make_values(np, kind, n, ncols,
-                                             100 * si + ci)).to(dev)
+        # G on each side of the private path's limit and of the tiled
+        # path's one-tile limit at Q1's width
+        private_max, one_tile = S.group_limits(6, spec.L)
+        limits = [(50_000, g, 6, "wide", None, 0.05, False)
+                  for g in (private_max, private_max + 1, one_tile,
+                            one_tile + 1) if g >= 1]
+        for ci, (n, g, ncols, kind, tile, pad, unaligned) in \
+                enumerate(cases + limits):
+            vals = make_values(np, kind, n, ncols, 100 * si + ci)
             rng = np.random.default_rng(7 + ci)
-            ids = torch.from_numpy(
-                rng.integers(0, g, n).astype(np.int32)).to(dev)
+            keys = rng.integers(0, g, n).astype(np.int32)
+            keys[rng.random(n) < pad] = -1
+            if unaligned:           # shift both by one element
+                flat = torch.from_numpy(np.concatenate(
+                    [np.zeros(1, np.float32), vals.reshape(-1)])).to(dev)
+                x = flat[1:].view(n, ncols)
+                ids = torch.from_numpy(np.concatenate(
+                    [np.zeros(1, np.int32), keys])).to(dev)[1:]
+                check(x.data_ptr() % 16 != 0 and ids.data_ptr() % 16 != 0,
+                      "unaligned case is aligned")
+            else:
+                x = torch.from_numpy(vals).to(dev)
+                ids = torch.from_numpy(keys).to(dev)
             e1 = acc.required_e1(x, spec, axis=0)
             windows = {(0, spec.L), prescan.static_window(x, e1, spec)}
             for lv in sorted(windows):
@@ -165,7 +223,9 @@ def kernel_cases(torch, np, dev, R, S, acc, prescan, ReproSpec):
                 got_f = R.rsum_levels_kernel(x, A, iu, spec)
                 want_f = R.rsum_levels_plain(x, A, iu, spec)
                 torch.cuda.synchronize()
-                for a, b, what in ((got, want, "segment"),
+                path = S.launch_shape(n, g, ncols, A.shape[0], 132,
+                                      tile).path
+                for a, b, what in ((got, want, f"segment ({path})"),
                                    (got_f, want_f, "rsum")):
                     for ta, tb in zip(a, b):
                         check(ta.dtype == tb.dtype and ta.shape == tb.shape,
@@ -175,7 +235,8 @@ def kernel_cases(torch, np, dev, R, S, acc, prescan, ReproSpec):
                         worst = max(worst, diff)
                         check(diff == 0, f"{what} kernel != plain: "
                               f"spec L={spec.L} W={spec.W} n={n} G={g} "
-                              f"ncols={ncols} {kind} levels={lv}")
+                              f"ncols={ncols} {kind} levels={lv} "
+                              f"pad={pad} unaligned={unaligned}")
                 count += 1
     emit(phase="kernels_vs_plain", cases=count, max_abs_err=worst,
          bitwise=True)
@@ -218,6 +279,41 @@ def q18_table(torch, dev, orders: int, seed: int):
         torch.arange(orders, dtype=torch.int32, device=dev), per_order)
     qty = torch.randint(1, 51, (keys.shape[0],), generator=gen, device=dev)
     return qty.to(torch.float32)[:, None], keys
+
+
+def q9_table(torch, dev, orders: int, seed: int):
+    """Q9's ``GROUP BY nation, o_year`` (25 x 7 groups) over the lineitem
+    rows of green parts (``p_name LIKE '%green%'``), in lineitem order,
+    drawn on the card from dbgen's domains: 1..7 lineitems per order, one
+    o_orderdate per order, the supplier's s_nationkey uniform over 25
+    nations, a row's part green with probability 5/92.  The value is Q9's
+    ``amount = l_extendedprice * (1 - l_discount) - ps_supplycost *
+    l_quantity`` (ps_supplycost 1.00..1000.00); the key is
+    ``nation * 7 + (o_year - 1992)``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    f64 = torch.float64
+    per_order = torch.randint(1, 8, (orders,), generator=gen, device=dev)
+    day = torch.randint(0, sum(Q9_YEAR_DAYS), (orders,), generator=gen,
+                        device=dev)
+    cuts = torch.tensor(Q9_YEAR_DAYS, device=dev).cumsum(0)[:-1]
+    year = torch.repeat_interleave(
+        torch.bucketize(day, cuts, right=True), per_order)
+    year = year[torch.rand(year.shape[0], generator=gen, device=dev)
+                < Q9_GREEN]
+    n = year.shape[0]
+    nation = torch.randint(0, Q9_NATIONS, (n,), generator=gen, device=dev)
+    qty = torch.randint(1, 51, (n,), generator=gen, device=dev).to(f64)
+    part = torch.randint(1, 2_000_001, (n,), generator=gen, device=dev)
+    retail = (90_000 + (part // 10) % 20_001 + 100 * (part % 1000)).to(f64) \
+        / 100.0
+    disc = torch.randint(0, 11, (n,), generator=gen, device=dev).to(f64) \
+        / 100.0
+    cost = torch.randint(100, 100_001, (n,), generator=gen,
+                         device=dev).to(f64) / 100.0
+    amount = qty * retail * (1.0 - disc) - cost * qty
+    keys = (nation * len(Q9_YEAR_DAYS) + year).to(torch.int32)
+    return amount.to(torch.float32)[:, None].contiguous(), keys
 
 
 def profile_q1(torch, fn, e2e_ms: float, card: str, limit: str) -> None:
@@ -294,6 +390,10 @@ def run(args) -> dict:
     build_s = _build.build_all()
     emit(phase="build", seconds=round(build_s, 3),
          kernels=sorted(_build.KERNEL_SOURCES))
+    emit(phase="ptxas", functions={
+        name: [[r["function"], r.get("registers"), r.get("spill_stores"),
+                r.get("spill_loads")] for r in _build.ptxas_report(name)]
+        for name in sorted(_build.KERNEL_SOURCES)})
 
     max_err = kernel_cases(torch, np, dev, R, S, acc, prescan, ReproSpec)
 
@@ -428,15 +528,57 @@ def run(args) -> dict:
         return torch.zeros((4, X.shape[1]), dtype=torch.float32,
                            device=dev).index_add_(0, keys64, X)
 
-    seg_ms = cuda_ms(torch, lambda: S.segment_levels_kernel(
-        X, keys, 4, A, iu, spec))
+    def seg_kernel():
+        return S.segment_levels_kernel(X, keys, 4, A, iu, spec)
+
+    def rsum_kernel():
+        return R.rsum_levels_kernel(XF, Af, iuf, spec)
+
+    def flat_library():
+        return XF.sum(dim=0)
+
+    # ms: device time per launch (10 launches per window); call_ms: one
+    # call per window, the wrapper's host work included
+    seg_ms = cuda_ms(torch, seg_kernel, reps=10, batch=10)
+    seg_call_ms = cuda_ms(torch, seg_kernel, reps=20)
     seg_plain_ms = cuda_ms(torch, lambda: S.segment_levels_plain(
         X, keys, 4, A, iu, spec), reps=3)
     yard_ms = cuda_ms(torch, yardstick)
-    rsum_ms = cuda_ms(torch, lambda: R.rsum_levels_kernel(XF, Af, iuf, spec))
+    rsum_ms, flat_lib_ms = paired_ms(torch, rsum_kernel, flat_library, 10)
+    rsum_call_ms, flat_lib_call_ms = paired_ms(torch, rsum_kernel,
+                                               flat_library, 1)
     rsum_plain_ms = cuda_ms(torch, lambda: R.rsum_levels_plain(
         XF, Af, iuf, spec), reps=3)
-    flat_lib_ms = cuda_ms(torch, lambda: XF.sum(dim=0))
+    # the tiled path at Q18's 15,000,000 groups (not the planner's choice)
+    e1q = acc.required_e1(qv, spec, axis=0)
+    Aq, iuq = R.ladder(e1q, spec, lv)
+    q18_path = S.launch_shape(qv.shape[0], SF10_ORDERS, 1, Aq.shape[0],
+                              132).path
+    seg_q18_ms = cuda_ms(torch, lambda: S.segment_levels_kernel(
+        qv, qk, SF10_ORDERS, Aq, iuq, spec), reps=3)
+    seg_q18_bytes = 8 * qv.shape[0] + 8 * SF10_ORDERS * Aq.shape[0]
+    # the tiled path in one group tile at Q9's GROUP BY nation, o_year
+    # (175 groups) over SF10's green rows: in lineitem order, and sorted by
+    # group (a clustered input: whole warps on one group)
+    q9_groups = Q9_NATIONS * len(Q9_YEAR_DAYS)
+    q9_x, q9_keys = q9_table(torch, dev, SF10_ORDERS, args.seed + 4)
+    n9 = q9_x.shape[0]
+    q9_order = torch.sort(q9_keys, stable=True).indices
+    q9_sx, q9_skeys = q9_x[q9_order].contiguous(), q9_keys[q9_order]
+    e19 = acc.required_e1(q9_x, spec, axis=0)
+    A9, iu9 = R.ladder(e19, spec, lv)
+    q9_path = S.launch_shape(n9, q9_groups, 1, A9.shape[0], 132).path
+    for xs, ks in ((q9_x, q9_keys), (q9_sx, q9_skeys)):
+        got9 = S.segment_levels_kernel(xs, ks, q9_groups, A9, iu9, spec)
+        want9 = S.segment_levels_plain(xs, ks, q9_groups, A9, iu9, spec)
+        check(all(torch.equal(a, b) for a, b in zip(got9, want9)),
+              "segment kernel != plain at the Q9 shape")
+    seg_q9_ms = cuda_ms(torch, lambda: S.segment_levels_kernel(
+        q9_x, q9_keys, q9_groups, A9, iu9, spec), reps=10, batch=10)
+    seg_q9_sorted_ms = cuda_ms(torch, lambda: S.segment_levels_kernel(
+        q9_sx, q9_skeys, q9_groups, A9, iu9, spec), reps=10, batch=10)
+    seg_q9_bytes = 8 * n9 + 8 * q9_groups * A9.shape[0]
+    del q9_x, q9_keys, q9_sx, q9_skeys, q9_order, got9, want9
     e2e_ms = host_ms(torch, lambda: groupby_agg(values, keys, 4, Q1_AGGS,
                                                 spec))
     e2e_flat_ms = host_ms(torch, lambda: groupby_agg(values, zeros, 1,
@@ -454,30 +596,39 @@ def run(args) -> dict:
     rsum_bound = max(rsum_bytes / HBM_BYTES_PER_S,
                      rsum_ops / F32_OPS_PER_S)
     emit(phase="times", card=name, power_limit=limit, n=n,
-         segment_kernel_ms=seg_ms, segment_plain_ms=seg_plain_ms,
+         segment_kernel_ms=seg_ms, segment_kernel_call_ms=seg_call_ms,
+         segment_plain_ms=seg_plain_ms,
          yardstick_index_add_f32_ms=yard_ms,
          kernel_slowdown_vs_yardstick=seg_ms / yard_ms,
-         rsum_kernel_ms=rsum_ms, rsum_plain_ms=rsum_plain_ms,
-         flat_sum_f32_ms=flat_lib_ms,
+         rsum_kernel_ms=rsum_ms, rsum_kernel_call_ms=rsum_call_ms,
+         rsum_plain_ms=rsum_plain_ms, flat_sum_f32_ms=flat_lib_ms,
+         flat_sum_f32_call_ms=flat_lib_call_ms,
+         segment_q18_path=q18_path, segment_q18_kernel_ms=seg_q18_ms,
+         segment_q18_bound_ms=seg_q18_bytes / HBM_BYTES_PER_S * 1e3,
+         segment_q9_path=q9_path, segment_q9_rows=n9,
+         segment_q9_kernel_ms=seg_q9_ms,
+         segment_q9_sorted_kernel_ms=seg_q9_sorted_ms,
+         segment_q9_bound_ms=seg_q9_bytes / HBM_BYTES_PER_S * 1e3,
          groupby_agg_q1_ms=e2e_ms,
          e2e_slowdown_vs_yardstick=e2e_ms / yard_ms,
          groupby_agg_flat_ms=e2e_flat_ms, groupby_agg_q18_ms=e2e_q18_ms,
          q1_rows_per_s=n / (e2e_ms / 1e3))
     kernels = [
         {"name": "segment_rsum", "route": "cuda",
+         "path": S.launch_shape(n, 4, X.shape[1], nlev, 132).path,
          "source": "src/repro_torch/kernels/segment_rsum/csrc/segment_rsum.cu",
          "replaces": "src/repro/kernels/segment_rsum/kernel.py:52",
          "launches": seg_launches, "max_abs_err": max(max_err, seg_err),
-         "ms": seg_ms, "plain_ms": seg_plain_ms,
+         "ms": seg_ms, "call_ms": seg_call_ms, "plain_ms": seg_plain_ms,
          "bound_ms": seg_bound * 1e3,
          "bound_by": "bytes" if seg_bytes / HBM_BYTES_PER_S
          >= seg_ops / F32_OPS_PER_S else "operations",
          "library_ms": yard_ms},
-        {"name": "rsum", "route": "cuda",
+        {"name": "rsum", "route": "cuda", "path": "vector",
          "source": "src/repro_torch/kernels/rsum/csrc/rsum.cu",
          "replaces": "src/repro/kernels/rsum/kernel.py:33",
          "launches": rsum_launches, "max_abs_err": max(max_err, rsum_err),
-         "ms": rsum_ms, "plain_ms": rsum_plain_ms,
+         "ms": rsum_ms, "call_ms": rsum_call_ms, "plain_ms": rsum_plain_ms,
          "bound_ms": rsum_bound * 1e3,
          "bound_by": "bytes" if rsum_bytes / HBM_BYTES_PER_S
          >= rsum_ops / F32_OPS_PER_S else "operations",

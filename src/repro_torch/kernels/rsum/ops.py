@@ -14,6 +14,7 @@ function in plain PyTorch.  ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -28,11 +29,22 @@ from repro_torch.kernels import _build
 
 __all__ = ["rsum", "rsum_acc", "rsum_table", "max_block_rows",
            "rsum_levels", "rsum_levels_kernel", "rsum_levels_plain",
-           "ladder", "LAUNCHES"]
+           "ladder", "grid_blocks", "LAUNCHES"]
 
 LAUNCHES = 0          # kernel launches in this process
 THREADS = 256         # threads per block
-BLOCKS_PER_SM = 4     # grid cap: enough blocks in flight to fill the card
+VEC = 4               # floats per 16-byte vector load
+
+
+def grid_blocks(total: int, ncols: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of one launch over ``total`` floats: at most one resident
+    wave (``blocks_per_sm * sms``), and a multiple of ``step`` so that
+    ``blocks * THREADS * VEC`` is a multiple of ``ncols`` (each vector slot
+    of a thread then keeps one column).  Only when one ``step`` exceeds the
+    wave does the grid take more."""
+    step = ncols // math.gcd(ncols, THREADS * VEC)
+    blocks = min(-(-total // (THREADS * VEC)), blocks_per_sm * sms)
+    return max(step, blocks // step * step)
 
 
 def max_block_rows(spec: ReproSpec, ncols: int = 1,
@@ -92,25 +104,53 @@ def _launcher():
     fn = lib.rsum_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.rsum_blocks_per_sm.restype = ctypes.c_int
+        lib.rsum_blocks_per_sm.argtypes = [ctypes.c_int] * 3
         lib.rsum_error_string.restype = ctypes.c_char_p
         lib.rsum_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
+@functools.lru_cache(maxsize=256)
+def _grid(index: int, total: int, nlev: int, ncols: int) -> int:
+    """:func:`grid_blocks` with this card's SMs and the kernel's measured
+    resident blocks per SM."""
+    with torch.cuda.device(index):
+        per_sm = _launcher().rsum_blocks_per_sm(nlev, ncols, THREADS)
+    if per_sm < 1:
+        raise RuntimeError(f"rsum kernel cannot run {nlev} levels x "
+                           f"{ncols} columns on device {index}")
+    return grid_blocks(total, ncols, _build.sm_count(index), per_sm)
+
+
+_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _workspace(x: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """int64 scratch of ``1 + n`` entries or more, one per (device, stream),
+    zero between launches: the kernel's ticket counter, then its (nlev,
+    ncols) sums, which the last block zeroes again.  Launches on one stream
+    run in order, so they share it; the kernel allocates nothing."""
+    key = (x.get_device(), stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < n + 1:
+        ws = _WORKSPACES[key] = torch.zeros(n + 1, dtype=torch.int64,
+                                            device=x.device)
+    return ws
+
+
 def rsum_levels_kernel(x: torch.Tensor, A: torch.Tensor,
                        inv_ulp: torch.Tensor, spec: ReproSpec):
-    """The CUDA kernel: same contract as :func:`rsum_levels_plain`."""
+    """The CUDA kernel: same contract as :func:`rsum_levels_plain`.  The
+    kernel reduces across blocks and splits the sums canonically itself, in
+    one launch; ``k`` and ``C`` are the two halves of one int32 buffer."""
     global LAUNCHES
     if spec.m > 30:
         raise ValueError("the rsum kernel supports float32 accumulators")
-    for name, t in (("x", x), ("A", A), ("inv_ulp", inv_ulp)):
-        if t.device.type != "cuda" or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be a float32 CUDA tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _build.check_cuda("x, A and inv_ulp", (x, A, inv_ulp), torch.float32)
     if x.ndim != 2 or A.ndim != 2 or A.shape != inv_ulp.shape \
             or A.shape[1] != x.shape[1]:
         raise ValueError("rsum kernel expects x (n, ncols) and A, inv_ulp "
@@ -120,22 +160,20 @@ def rsum_levels_kernel(x: torch.Tensor, A: torch.Tensor,
     if not 1 <= nlev <= 8 or ncols < 1:
         raise ValueError(f"unsupported level/column count {nlev}/{ncols}")
     total = n * ncols
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(-(-total // THREADS), BLOCKS_PER_SM * sms))
-    step = ncols // math.gcd(ncols, THREADS)     # blocks*THREADS % ncols == 0
-    blocks = -(-blocks // step) * step
-    partial = torch.empty((blocks, nlev, ncols), dtype=torch.int64,
-                          device=x.device)
+    blocks = _grid(x.get_device(), total, nlev, ncols)
+    stream = _build.current_stream(x)
+    ws = _workspace(x, stream, nlev * ncols)
+    out = x.new_empty((2, nlev, ncols), dtype=torch.int32)
     lib = _launcher()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    k_ptr = out.data_ptr()
     err = lib.rsum_launch(x.data_ptr(), A.data_ptr(), inv_ulp.data_ptr(),
-                          partial.data_ptr(), total, ncols, nlev, blocks,
-                          THREADS, stream)
+                          ws.data_ptr(), k_ptr, k_ptr + 4 * nlev * ncols,
+                          total, ncols, nlev, spec.m, blocks, THREADS, stream)
     if err:
         raise RuntimeError("rsum kernel launch failed: "
                            + lib.rsum_error_string(err).decode())
     LAUNCHES += 1
-    return _canonical(partial.sum(dim=0), spec)
+    return out.unbind(0)
 
 
 def rsum_levels(x: torch.Tensor, A: torch.Tensor, inv_ulp: torch.Tensor,

@@ -6,11 +6,14 @@ in one streaming pass.  ``segment_rsum_kernel`` is the single-column API.
 
 On a CUDA tensor the hand-written kernel (``csrc/segment_rsum.cu``) runs,
 or the call raises; on a CPU tensor :func:`segment_levels_plain` computes
-the same function in plain PyTorch.  ``LAUNCHES`` counts kernel launches.
+the same function in plain PyTorch.  ``LAUNCHES`` counts kernel launches:
+two a call, the path's kernel and the slab reduction.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -24,20 +27,36 @@ from repro_torch.kernels.rsum.ops import _canonical, ladder
 
 __all__ = ["segment_agg_kernel", "segment_rsum_kernel", "segment_levels",
            "segment_levels_kernel", "segment_levels_plain", "group_tile",
-           "launch_shape", "LAUNCHES"]
+           "launch_shape", "group_limits", "flush_rows", "LaunchShape",
+           "LAUNCHES"]
 
 LAUNCHES = 0                   # kernel launches in this process
-THREADS = 512                  # threads per block
+PRIVATE_THREADS = 256          # threads per block, private path (kernel's)
+THREADS = 512                  # threads per block, tiled path
 SMEM_BYTES = 232_448           # dynamic shared memory one block may use
-REPLICA_BYTES = 48 * 1024      # shared memory spent on per-warp table copies
-BLOCKS_PER_SM = 4              # target blocks in flight per SM
-MIN_SLAB_ROWS = 4 * THREADS    # fewest rows worth a slab of their own
-PARTIAL_BYTES = 1 << 28        # cap on the per-slab partial tables
+PRIVATE_BYTES = 96 * 1024      # private path: slices + int64 block table
+PRIVATE_MAX_COLS = 8           # private path's template range (columns)
+PRIVATE_MAX_LEVELS = 4         # ... and levels
+REPLICA_BYTES = 48 * 1024      # tiled path: shared memory for table copies
+BLOCKS_PER_SM = 4              # resident blocks per SM when not measured
+MIN_SLAB_ROWS = 2048           # fewest rows worth a slab of their own
+PARTIAL_BYTES = 1 << 28        # cap on the per-slab int64 partial tables
+PATHS = ("private", "tiled")
+
+
+class LaunchShape(NamedTuple):
+    path: str           # "private" or "tiled"
+    tile: int           # groups per block (G unless tiled)
+    replicas: int       # copies of the table per block
+    slabs: int          # row slabs (blocks per group tile)
+    rows_per_slab: int  # a multiple of 4
+    threads: int        # threads per block
+    smem: int           # dynamic shared memory per block, bytes
 
 
 def group_tile(num_segments: int, ncols: int, nlev: int) -> int:
-    """Groups per block: as many int32 (k, C) table entries as fit the
-    block's shared memory beside the extractor ladder."""
+    """Groups per block on the tiled path: as many int32 (k, C) table
+    entries as fit the block's shared memory beside the extractor ladder."""
     per_group = 2 * 4 * nlev * ncols
     cap = (SMEM_BYTES - 2 * 4 * nlev * ncols) // per_group
     if cap < 1:
@@ -46,25 +65,69 @@ def group_tile(num_segments: int, ncols: int, nlev: int) -> int:
     return max(1, min(num_segments, cap))
 
 
-def launch_shape(n: int, num_segments: int, ncols: int, nlev: int,
-                 sms: int, tile: int | None = None):
-    """(tile, replicas, slabs, rows_per_slab) of one launch.
+def flush_rows(spec: ReproSpec) -> int:
+    """Rows after which an int32 table entry is flushed (private path) or
+    renormalized (tiled path): ``rows * 2^(W-1) <= 2^30``."""
+    return 1 << (30 - (spec.W - 1))
 
-    Slabs fill the card with blocks, but no more of them than the rows
-    justify or than ``PARTIAL_BYTES`` of per-slab partials allow at large G.
+
+def private_bytes(num_segments: int, ncols: int, nlev: int) -> int:
+    """Private path's shared memory: an int32 slice per thread plus the
+    block's int64 flush table."""
+    ent = num_segments * ncols * nlev
+    return ent * (4 * PRIVATE_THREADS + 8)
+
+
+def stage_bytes(ncols: int) -> int:
+    """Private path's chunk buffers: two per warp of 128 rows and ids."""
+    return 2 * (PRIVATE_THREADS // 32) * (32 * ncols + 32) * 16
+
+
+def group_limits(ncols: int, nlev: int) -> tuple[int, int]:
+    """Largest G the private path takes (0: none), and largest G the tiled
+    path takes in one group tile (0: none)."""
+    fits_private = ncols <= PRIVATE_MAX_COLS and nlev <= PRIVATE_MAX_LEVELS
+    private = PRIVATE_BYTES // private_bytes(1, ncols, nlev) \
+        if fits_private else 0
+    one_tile = max(0, (SMEM_BYTES - 8 * nlev * ncols) // (8 * ncols * nlev))
+    return private, one_tile
+
+
+def launch_shape(n: int, num_segments: int, ncols: int, nlev: int,
+                 sms: int, tile: int | None = None,
+                 blocks_per_sm: int = BLOCKS_PER_SM) -> LaunchShape:
+    """The path and sizes of one launch.
+
+    Without a ``tile`` cap, a table that fits ``PRIVATE_BYTES`` as
+    per-thread slices takes the private path, and any other the tiled
+    path, in as few group tiles as fit a block's shared memory (with one
+    copy per warp as far as ``REPLICA_BYTES`` allows); a ``tile`` forces
+    the tiled path.  Slabs fill ``blocks_per_sm * sms`` resident blocks once,
+    but no more of them than the rows justify or than ``PARTIAL_BYTES`` of
+    int64 partials allow at large G.
     """
-    cap = group_tile(num_segments, ncols, nlev)
-    tile = cap if tile is None else max(1, min(int(tile), cap))
-    n_tiles = -(-num_segments // tile)
-    ent_bytes = 2 * 4 * nlev * ncols * tile
-    replicas = max(1, min(THREADS // 32, REPLICA_BYTES // ent_bytes))
-    slab_bytes = 2 * 4 * nlev * ncols * num_segments
-    slabs = -(-BLOCKS_PER_SM * sms // n_tiles)
-    slabs = min(slabs, -(-n // MIN_SLAB_ROWS), PARTIAL_BYTES // slab_bytes,
-                65_535)
-    slabs = max(1, slabs)
-    rows_per_slab = max(1, -(-n // slabs))
-    return tile, replicas, slabs, rows_per_slab
+    G = num_segments
+    private_max, _ = group_limits(ncols, nlev)
+    if tile is None and G <= private_max:
+        path, tile, threads = "private", G, PRIVATE_THREADS
+        replicas = PRIVATE_THREADS
+        smem = -(-private_bytes(G, ncols, nlev) // 16) * 16 \
+            + stage_bytes(ncols)
+    else:
+        cap = group_tile(G, ncols, nlev)
+        tile = cap if tile is None else max(1, min(int(tile), cap))
+        ent_bytes = 2 * 4 * nlev * ncols * tile
+        path, threads = "tiled", THREADS
+        replicas = max(1, min(THREADS // 32, REPLICA_BYTES // ent_bytes))
+        smem = replicas * ent_bytes + 2 * 4 * nlev * ncols
+    n_tiles = -(-G // tile)
+    slabs = -(-max(1, blocks_per_sm) * sms // n_tiles)
+    slabs = min(slabs, -(-n // MIN_SLAB_ROWS),
+                PARTIAL_BYTES // (8 * G * ncols * nlev), 65_535)
+    rows_per_slab = -(-max(1, -(-n // max(1, slabs))) // 4) * 4
+    slabs = max(1, -(-n // rows_per_slab))
+    return LaunchShape(path, tile, replicas, slabs, rows_per_slab, threads,
+                       smem)
 
 
 def segment_levels_plain(x: torch.Tensor, ids: torch.Tensor,
@@ -92,61 +155,74 @@ def _launcher():
     fn = lib.segment_rsum_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 8 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_void_p]
+        occ = lib.segment_rsum_blocks_per_sm
+        occ.restype = ctypes.c_int
+        occ.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
         lib.segment_rsum_error_string.restype = ctypes.c_char_p
         lib.segment_rsum_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _card_shape(index: int, n: int, num_segments: int, ncols: int,
+                nlev: int, tile: int | None) -> LaunchShape:
+    """:func:`launch_shape` with this card's SMs and the chosen kernel's
+    measured resident blocks per SM."""
+    sms = _build.sm_count(index)
+    first = launch_shape(n, num_segments, ncols, nlev, sms, tile)
+    with torch.cuda.device(index):
+        per_sm = _launcher().segment_rsum_blocks_per_sm(
+            PATHS.index(first.path), ncols, nlev, first.threads, first.smem)
+    if per_sm < 1:
+        raise RuntimeError(f"segment kernel ({first.path} path) cannot run "
+                           f"G={num_segments} x {ncols} columns x {nlev} "
+                           f"levels on device {index}")
+    return launch_shape(n, num_segments, ncols, nlev, sms, tile, per_sm)
 
 
 def segment_levels_kernel(x: torch.Tensor, ids: torch.Tensor,
                           num_segments: int, A: torch.Tensor,
                           inv_ulp: torch.Tensor, spec: ReproSpec,
                           tile: int | None = None):
-    """The CUDA kernel: same contract as :func:`segment_levels_plain`."""
+    """The CUDA kernel: same contract as :func:`segment_levels_plain`.  The
+    kernel reduces across slabs and splits the sums canonically itself;
+    ``k`` and ``C`` are the two halves of one int32 buffer."""
     global LAUNCHES
     if spec.m > 30:
         raise ValueError("the segment kernel supports float32 accumulators")
-    for name, t, dt in (("x", x, torch.float32), ("ids", ids, torch.int32),
-                        ("A", A, torch.float32),
-                        ("inv_ulp", inv_ulp, torch.float32)):
-        if t.device.type != "cuda" or t.dtype != dt:
-            raise ValueError(f"{name} must be a {dt} CUDA tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _build.check_cuda("x, A and inv_ulp", (x, A, inv_ulp), torch.float32)
+    _build.check_cuda("ids", (ids,), torch.int32)
     if x.ndim != 2 or ids.shape != (x.shape[0],) or A.ndim != 2 \
             or A.shape != inv_ulp.shape or A.shape[1] != x.shape[1]:
         raise ValueError("segment kernel expects x (n, ncols), ids (n,) and "
                          "A, inv_ulp (nlev, ncols)")
     n, ncols = x.shape
     nlev = A.shape[0]
-    if num_segments < 1 or ncols < 1:
-        raise ValueError("segment kernel needs G >= 1 and ncols >= 1")
-    renorm_rows = 1 << (30 - (spec.W - 1))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile, replicas, slabs, rows_per_slab = launch_shape(
-        n, num_segments, ncols, nlev, sms, tile)
-    part_k = torch.empty((slabs, nlev, ncols, num_segments),
-                         dtype=torch.int32, device=x.device)
-    part_c = torch.empty_like(part_k)
+    if num_segments < 1 or ncols < 1 or not 1 <= nlev <= 8:
+        raise ValueError("segment kernel needs G >= 1, ncols >= 1 and "
+                         "1 <= nlev <= 8")
+    shape = _card_shape(x.get_device(), n, num_segments, ncols, nlev,
+                        None if tile is None else int(tile))
+    ent = num_segments * ncols * nlev
+    part = x.new_empty(shape.slabs * ent, dtype=torch.int64)
+    out = x.new_empty((2, num_segments, ncols, nlev), dtype=torch.int32)
     lib = _launcher()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    k_ptr = out.data_ptr()
     err = lib.segment_rsum_launch(
         ids.data_ptr(), x.data_ptr(), A.data_ptr(), inv_ulp.data_ptr(),
-        part_k.data_ptr(), part_c.data_ptr(), n, ncols, nlev, spec.m,
-        num_segments, tile, replicas, slabs, rows_per_slab, renorm_rows,
-        THREADS, stream)
+        part.data_ptr(), k_ptr, k_ptr + 4 * ent, n, ncols, nlev, spec.m,
+        num_segments, PATHS.index(shape.path), shape.tile, shape.replicas,
+        shape.slabs, shape.rows_per_slab, flush_rows(spec), shape.threads,
+        shape.smem, _build.current_stream(x))
     if err:
         raise RuntimeError("segment kernel launch failed: "
                            + lib.segment_rsum_error_string(err).decode())
-    LAUNCHES += 1
-    # exact reduction over slabs; each slab's k is canonical (< 2^(m-2))
-    k, C = _canonical(part_k.sum(dim=0, dtype=torch.int64), spec)
-    C = C + part_c.sum(dim=0, dtype=torch.int64).to(C.dtype)
-    return (k.permute(2, 1, 0).contiguous(),
-            C.permute(2, 1, 0).contiguous())       # (G, ncols, nlev)
+    LAUNCHES += 2              # the path's kernel and segment_finalize
+    return out.unbind(0)
 
 
 def segment_levels(x: torch.Tensor, ids: torch.Tensor, num_segments: int,
@@ -173,7 +249,8 @@ def segment_agg_kernel(values, segment_ids, num_segments: int,
     max).  ``levels = (lo, hi)`` hands the kernel a pruned extractor
     sub-ladder; the dead levels come back as exact zeros.  ``block_n``
     changes no bits and nothing in how the kernel runs; ``group_tile``
-    caps the groups per block (it too changes no bits).
+    takes the kernel's tiled path with at most that many groups per block
+    (it too changes no bits).
     """
     del block_n
     if spec.m > 30:

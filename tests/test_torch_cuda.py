@@ -74,7 +74,7 @@ def test_cuda_kernels_match_plain(cuda, spec):
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert torch.equal(a, b), (n, g, ncols, kind)
-        assert seg_ops.LAUNCHES == before + 2
+        assert seg_ops.LAUNCHES == before + 4      # two kernels a call
 
 
 @pytest.mark.cuda
@@ -91,3 +91,75 @@ def test_groupby_on_the_card_equals_the_cpu(cuda):
             assert on_card[name].device.type == "cuda"
             assert on_card[name].cpu().numpy().tobytes() == \
                 on_cpu[name].numpy().tobytes(), (g, name)
+
+
+def _same_as_plain(x, ids, g, spec, tile=None):
+    """Both kernels against their plain versions, bit for bit; returns the
+    segment launch's path."""
+    e1 = acc.required_e1(x, spec, axis=0)
+    A, iu = rsum_ops.ladder(e1, spec, (0, spec.L))
+    got = seg_ops.segment_levels_kernel(x, ids, g, A, iu, spec, tile)
+    want = seg_ops.segment_levels_plain(x, ids, g, A, iu, spec)
+    got_f = rsum_ops.rsum_levels_kernel(x, A, iu, spec)
+    want_f = rsum_ops.rsum_levels_plain(x, A, iu, spec)
+    torch.cuda.synchronize()
+    for a, b in zip(got + got_f, want + want_f):
+        assert torch.equal(a, b), (tuple(x.shape), g, spec)
+    return seg_ops.launch_shape(x.shape[0], g, x.shape[1], spec.L, 132,
+                                tile).path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+def test_cuda_kernels_ragged_shapes(cuda, spec):
+    """Row counts around the 4-row and 16-byte vector edges, every column
+    count of the rsum column mapping and the private path's templates."""
+    for n in (1, 3, 5, 4097):
+        for ncols in (1, 3, 4, 5, 6, 7, 8):
+            x = torch.from_numpy(_values("wide", n, ncols,
+                                         seed=n * 10 + ncols)).to(cuda)
+            ids = torch.from_numpy(np.random.default_rng(ncols).integers(
+                0, 3, n).astype(np.int32)).to(cuda)
+            _same_as_plain(x, ids, 3, spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+def test_cuda_kernels_at_path_limits(cuda, spec):
+    """G on each side of the private-table limit and of the tiled path's
+    one-tile limit, with padding ids (-1) among the rows; every path is
+    reached."""
+    seen = set()
+    for ncols in (1, 6):
+        private_max, one_tile = seg_ops.group_limits(ncols, spec.L)
+        for g in (private_max, private_max + 1, one_tile, one_tile + 1):
+            if g < 1:
+                continue
+            n = 20_000
+            x = torch.from_numpy(_values("cancel", n, ncols, seed=g)) \
+                .to(cuda)
+            rng = np.random.default_rng(g)
+            ids = rng.integers(0, g, n).astype(np.int32)
+            ids[rng.random(n) < 0.1] = -1
+            seen.add(_same_as_plain(
+                x, torch.from_numpy(ids).to(cuda), g, spec))
+    assert seen == set(seg_ops.PATHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", SPECS, ids=str)
+def test_cuda_kernels_unaligned_views(cuda, spec):
+    """Contiguous views whose data_ptr is not 16-byte aligned take the
+    scalar head, tail and row loads; sorted ids put a whole warp on one
+    group."""
+    for n, g, ncols in [(4097, 3, 6), (10_001, 700, 5), (3, 2, 4),
+                        (50_000, 20_000, 1)]:
+        flat = torch.from_numpy(_values("wide", n * ncols + 1, 1,
+                                        seed=n)[:, 0]).to(cuda)
+        x = flat[1:].view(n, ncols)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        raw = torch.from_numpy(np.sort(np.random.default_rng(n).integers(
+            0, g, n + 1)).astype(np.int32)).to(cuda)
+        ids = raw[1:]
+        assert ids.data_ptr() % 16 != 0
+        _same_as_plain(x, ids, g, spec)
