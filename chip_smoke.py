@@ -31,7 +31,21 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    the end-to-end ``groupby_agg`` and the conventional
    float32 ``index_add_`` GROUPBY of the same columns — the
    non-reproducible yardstick — and one profiled Q1 call: device time per
-   operation and the device's idle share.
+   operation and the device's idle share;
+6. calibration: ``repro_torch.ops.calibrate.calibrate(backend="cuda")`` on
+   its quick grid (2^26 rows) into a cache in a temporary directory; the ns
+   per row of every strategy at every point, the planner's cold-start
+   constants fitted to them (``calibrate.fit_cold_model``), the planner's
+   choice at the Q1, flat, Q18 and Q9 shapes with and without the cache,
+   and Q1's digests under every strategy the measured race priced;
+7. sharded: ``repro_torch.ops.sharded`` in spawned rank processes joined by
+   a ``file://`` store: one rank over NCCL at Q1 SF10, then 2 and 4 ranks
+   on the same card over gloo (NCCL takes one rank per GPU) at a 2^22-row
+   Q1; every rank's digests must equal one-device ``groupby_agg``'s, and
+   ``repro_psum`` of the Q1 table is timed;
+8. baselines: the paper's RSUM algorithms (``core/rsum.py``), summation
+   buffers and DECIMAL sums on the card at small n, bit for bit against
+   the same calls on the CPU, with their times.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  Without a CUDA device, or without the
@@ -363,7 +377,149 @@ def planned_method(trace) -> str:
     return plans[-1]["attrs"]["method"]
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: calibration, sharded GROUPBY, the paper's baselines
+# ---------------------------------------------------------------------------
+
+def sharded_rank(rank: int, world: int, backend: str, store: str, out: str,
+                 n: int, seed: int) -> None:
+    """One rank of the sharded phase: draw the Q1 table of ``n`` rows from
+    ``seed`` on the card (every rank the same), aggregate its contiguous
+    share with ``sharded_partial_agg`` on the card over ``backend``
+    (``nccl`` or ``gloo``), and write its digests, its segment kernel
+    launches and the time of ``repro_psum`` of the Q1 table."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.collectives import repro_psum
+    from repro_torch.core.types import ReproSpec
+    from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.obs.fingerprint import (fingerprint_results,
+                                             fingerprint_table)
+    from repro_torch.ops.partial import finalize
+    from repro_torch.ops.sharded import sharded_partial_agg
+
+    card = torch.device("cuda", 0)
+    torch.cuda.set_device(card)
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=120),
+        device_id=card if backend == "nccl" else None)
+    try:
+        spec = ReproSpec()
+        values, keys = q1_table(torch, card, n, seed)
+        cut = [n * r // world for r in range(world + 1)]
+        values = values[cut[rank]:cut[rank + 1]]
+        keys = keys[cut[rank]:cut[rank + 1]]
+        dist.barrier()
+        torch.cuda.synchronize()
+        S.LAUNCHES = 0
+        t0 = time.perf_counter()
+        state = sharded_partial_agg(values, keys, 4, Q1_AGGS, spec)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        launches = S.LAUNCHES
+        table = state.table
+        times = []
+        for _ in range(21):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            repro_psum(table, spec)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec = {"rank": rank, "rows": cut[rank + 1] - cut[rank],
+               "results_digest": fingerprint_results(finalize(state)),
+               "table_digest": fingerprint_table(table, spec),
+               "segment_launches": launches, "call_ms": call_ms,
+               "psum_ms": statistics.median(times[1:])}
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def run_sharded(world: int, backend: str, n: int, seed: int,
+                timeout_s: float = 300.0) -> list:
+    """Spawn ``world`` ranks of :func:`sharded_rank`, wait at most
+    ``timeout_s``, kill any that are left, and return their records."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(sharded_rank,
+                       args=(world, backend, str(Path(tmp, "store")), tmp,
+                             n, seed), nprocs=world, join=False)
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"{world} {backend} ranks did not finish in "
+                      f"{timeout_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(world)]
+
+
+def baselines(torch, np, dev, card: str, limit: str) -> None:
+    """The paper's baselines on the card at small n, bit for bit against the
+    same calls on the CPU; host-clock times (synchronized), no claim."""
+    from repro_torch.core import buffers, rsum
+    from repro_torch.core.types import ReproSpec
+    from repro_torch.numerics import DecimalSpec, decimal_segment_sum
+
+    spec = ReproSpec()
+    n, n_scalar, groups = 1 << 16, 1 << 12, 16
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(n) * np.exp(rng.standard_normal(n) * 2)) \
+        .astype(np.float32)
+    ids = rng.integers(0, groups, n).astype(np.int32)
+    bsz = buffers.optimal_bsz(groups, 1, 4, cache_bytes=1 << 12)
+    calls = {
+        "rsum_scalar": (lambda v, k: rsum.rsum_scalar(v[:n_scalar], spec),
+                        n_scalar),
+        "rsum_simd": (lambda v, k: rsum.rsum_simd(v, spec, V=64), n),
+        "rsum_simd_chunked": (lambda v, k: rsum.rsum_simd_chunked(
+            v, spec, c=4096, V=64), n),
+        "buffers": (lambda v, k: tuple(buffers.flush_all(buffers.append(
+            buffers.init(groups, bsz, spec, device=v.device), k, v, spec),
+            spec)), n),
+        "decimal_segment_sum": (lambda v, k: decimal_segment_sum(
+            v, k, groups, DecimalSpec(precision=9, scale=4)), n),
+        "conventional_sum": (lambda v, k: (rsum.conventional_sum(v),), n),
+    }
+    xs = {d: torch.from_numpy(x).to(d) for d in ("cpu", dev)}
+    ks = {d: torch.from_numpy(ids).to(d) for d in ("cpu", dev)}
+    rec = {}
+    for name, (fn, rows) in calls.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(xs[dev], ks[dev])
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = fn(xs["cpu"], ks["cpu"])
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if name != "conventional_sum":      # a float sum's order is free
+            for a, b in zip(got, want):
+                check(a.dtype == b.dtype and a.shape == b.shape
+                      and a.cpu().numpy().tobytes()
+                      == b.numpy().tobytes(),
+                      f"baseline {name}: card != CPU")
+        rec[name] = {"rows": rows, "card_ms": card_ms, "cpu_ms": cpu_ms,
+                     "bitwise": name != "conventional_sum"}
+    emit(phase="baselines", card=card, power_limit=limit, bsz=bsz, **rec)
+
+
 def run(args) -> dict:
+    import tempfile
+
     import numpy as np
     import torch
 
@@ -376,8 +532,10 @@ def run(args) -> dict:
     from repro_torch.obs import trace
     from repro_torch.obs.fingerprint import (fingerprint_results,
                                              fingerprint_table)
+    from repro_torch.ops import calibrate as cal_mod
     from repro_torch.ops import groupby_agg
     from repro_torch.ops.partial import AggSignature, _build_columns
+    from repro_torch.ops.plan import plan_groupby
 
     dev = torch.device("cuda")
     card = card_line()
@@ -613,6 +771,79 @@ def run(args) -> dict:
          e2e_slowdown_vs_yardstick=e2e_ms / yard_ms,
          groupby_agg_flat_ms=e2e_flat_ms, groupby_agg_q18_ms=e2e_q18_ms,
          q1_rows_per_s=n / (e2e_ms / 1e3))
+    # -- phase 6: calibration on the card ---------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cal = cal_mod.calibrate(spec, backend="cuda",
+                                path=str(Path(tmp, "calibration.json")))
+        cal_s = time.perf_counter() - t0
+    emit(phase="calibration", card=name, power_limit=limit, seconds=cal_s,
+         points=[[p["method"], p["n"], p["G"], p["ncols"], p["ns_per_row"]]
+                 for p in cal.points])
+    emit(phase="cold_start_constants", card=name, power_limit=limit,
+         **cal_mod.fit_cold_model(cal, spec))
+    plans = {}
+    for label, (rows, g, ncols) in {
+            "q1": (n, 4, X.shape[1]), "flat": (n, 1, XF.shape[1]),
+            "q18": (int(qk.shape[0]), SF10_ORDERS, 1),
+            "q9": (n9, q9_groups, 1)}.items():
+        cold = plan_groupby(rows, g, spec, ncols=ncols, backend="cuda",
+                            calibration=None)
+        meas = plan_groupby(rows, g, spec, ncols=ncols, backend="cuda",
+                            calibration=cal)
+        plans[label] = {"n": rows, "G": g, "ncols": ncols,
+                        "without_cache": [cold.method, cold.source,
+                                          cold.cost],
+                        "with_cache": [meas.method, meas.source, meas.cost]}
+    q1_plan = plan_groupby(n, 4, spec, ncols=X.shape[1], backend="cuda",
+                           calibration=cal)
+    check(q1_plan.source == "measured",
+          f"the cache did not decide Q1's plan ({q1_plan.source})")
+    # every strategy the measured race priced at Q1 keeps the bits, so a
+    # plan change moves only the time
+    priced = [m for m in ("onehot", "scatter", "sort", "pallas")
+              if cal_mod.fitted_cost(cal, m, n, 4, X.shape[1], spec,
+                                     backend="cuda") is not None]
+    for m in priced:
+        q1m, q1m_tab = groupby_agg(values, keys, 4, Q1_AGGS, spec, method=m,
+                                   return_table=True)
+        check(fingerprint_results(q1m) == digest
+              and fingerprint_table(q1m_tab, spec) == tdigest,
+              f"Q1 digests differ under {m}, priced by the measured race")
+        del q1m, q1m_tab
+    emit(phase="calibrated_plans", q1_measured_method=q1_plan.method,
+         q1_priced_methods=priced, q1_digests_equal=True, **plans)
+
+    # -- phase 7: the sharded GROUPBY -------------------------------------
+    one = run_sharded(1, "nccl", n, args.seed)[0]
+    check(one["results_digest"] == digest and one["table_digest"] == tdigest,
+          "sharded Q1 SF10 (1 rank, NCCL) digests != groupby_agg's")
+    check(one["segment_launches"] > 0,
+          "sharded Q1 SF10 did not launch the segment kernel")
+    small = 1 << 22
+    sv, sk = q1_table(torch, dev, small, args.seed + 5)
+    sres, stab = groupby_agg(sv, sk, 4, Q1_AGGS, spec, return_table=True)
+    sdig, stdig = fingerprint_results(sres), fingerprint_table(stab, spec)
+    del sv, sk, sres, stab
+    multi = {}
+    for world in (2, 4):
+        recs = run_sharded(world, "gloo", small, args.seed + 5)
+        for rec in recs:
+            check(rec["results_digest"] == sdig
+                  and rec["table_digest"] == stdig,
+                  f"sharded Q1 (2^22 rows, {world} ranks over gloo) rank "
+                  f"{rec['rank']} digests != groupby_agg's")
+            check(rec["segment_launches"] > 0,
+                  f"rank {rec['rank']} of {world} did not launch the "
+                  "segment kernel")
+        multi[str(world)] = recs
+    emit(phase="sharded", card=name, power_limit=limit,
+         q1_sf10_nccl_1_rank=one, q1_2p22_rows=small,
+         q1_2p22_digest=sdig, gloo_card_tensors=multi)
+
+    # -- phase 8: the paper's baselines -----------------------------------
+    baselines(torch, np, dev, name, limit)
+
     kernels = [
         {"name": "segment_rsum", "route": "cuda",
          "path": S.launch_shape(n, 4, X.shape[1], nlev, 132).path,

@@ -27,7 +27,8 @@ from repro_torch.core.types import ReproSpec
 
 __all__ = [
     "ReproAcc", "zeros", "extract", "pad_levels", "renorm", "from_values",
-    "merge", "merge_all", "finalize", "demote_to", "required_e1",
+    "merge", "merge_all", "add_values", "finalize", "demote_to",
+    "required_e1", "to_paper_state", "from_paper_state",
 ]
 
 
@@ -213,6 +214,21 @@ def merge_all(accs, spec: ReproSpec) -> ReproAcc:
     return ReproAcc(k=k, C=C, e1=e1)
 
 
+def add_values(acc: ReproAcc, values, spec: ReproSpec, axis=None) -> ReproAcc:
+    """Streaming add of a batch of values (paper's operator+=(ScalarT)).
+
+    Demotes the accumulator first if the batch max exceeds the admission
+    threshold of its current lattice — the vectorized analogue of Alg.3
+    line 4 (one max check per batch instead of per element).
+    """
+    return merge(acc, from_values(values, spec, axis=axis), spec)
+
+
+def _level_exponents(e1: torch.Tensor, spec: ReproSpec) -> torch.Tensor:
+    return e1[..., None] - torch.arange(
+        spec.L, dtype=torch.int32, device=e1.device) * spec.W
+
+
 def finalize(acc: ReproAcc, spec: ReproSpec) -> torch.Tensor:
     """Deterministic conversion to a float (paper Eq. 1).
 
@@ -221,11 +237,30 @@ def finalize(acc: ReproAcc, spec: ReproSpec) -> torch.Tensor:
     rounds; it is a pure function of the canonical (k, C, e1).
     """
     dt = spec.dtype
-    es = acc.e1[..., None] - torch.arange(
-        spec.L, dtype=torch.int32, device=acc.e1.device) * spec.W
+    es = _level_exponents(acc.e1, spec)
     q = (acc.C.to(dt) * eft.pow2(es - 2, dt)
          + acc.k.to(dt) * eft.pow2(es - spec.m, dt))
     total = torch.zeros(acc.batch_shape, dtype=dt, device=acc.k.device)
     for l in range(spec.L - 1, -1, -1):
         total = total + q[..., l]
     return total
+
+
+def to_paper_state(acc: ReproAcc, spec: ReproSpec):
+    """Exact conversion to the paper's <S[L], C[L]> float representation."""
+    es = _level_exponents(acc.e1, spec)
+    A = eft.extractor(es, spec.dtype)
+    S = A + acc.k.to(spec.dtype) * eft.pow2(es - spec.m, spec.dtype)
+    return S, acc.C
+
+
+def from_paper_state(S, C, e1, spec: ReproSpec) -> ReproAcc:
+    """Exact inverse of :func:`to_paper_state` (S must lie in its window)."""
+    S = torch.as_tensor(S)
+    e1 = torch.as_tensor(e1, dtype=torch.int32, device=S.device)
+    es = _level_exponents(e1, spec)
+    A = eft.extractor(es, spec.dtype)
+    k = ((S - A) * eft.pow2(spec.m - es, spec.dtype)).to(spec.int_dtype)
+    k, C = renorm(k, torch.as_tensor(C, device=S.device).to(spec.int_dtype),
+                  spec)
+    return ReproAcc(k=k, C=C, e1=e1)

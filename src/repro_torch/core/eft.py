@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.core.types import float_spec
 
-__all__ = ["exponent", "pow2", "extractor", "eft_fixed"]
+__all__ = ["exponent", "ufp", "pow2", "extractor", "eft_fixed"]
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -26,6 +26,12 @@ def exponent(x: torch.Tensor) -> torch.Tensor:
     spec = float_spec(x.dtype)
     e = (_bits(x) & spec.exp_mask) >> spec.m
     return e.to(torch.int32) - spec.bias
+
+
+def ufp(x: torch.Tensor) -> torch.Tensor:
+    """Unit in the first place: 2^exponent(x) (Goldberg).  ufp(0) = 0."""
+    spec = float_spec(x.dtype)
+    return (_bits(x) & spec.exp_mask).view(x.dtype)
 
 
 def _biased(e, dtype) -> torch.Tensor:

@@ -148,6 +148,16 @@ class ReproSpec:
         return torch.int32 if self.m <= 30 else torch.int64
 
     @property
+    def nb(self) -> int:
+        """Max additions between carry propagations: NB <= 2^(m - W - 1).
+
+        Each contribution is bounded by 2^(W-1) ulp = 2^(W-1-m) ufp; the
+        running sum may drift at most 0.25 ufp from its window before its
+        exponent could change, giving NB * 2^(W-1-m) <= 2^-2.
+        """
+        return 1 << (self.m - self.W - 1)
+
+    @property
     def tree_group(self) -> int:
         """Safe fan-in for exact integer tree reduction of window offsets."""
         bits = 31 if self.m <= 30 else 63

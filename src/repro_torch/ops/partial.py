@@ -382,6 +382,21 @@ def partial_agg(values, keys, num_segments: int, aggs=("sum",),
     lattice is the tightest this batch admits (per-column ``required_e1``);
     :func:`merge` aligns mismatched lattices exactly.
     """
+    return _partial_agg(values, keys, num_segments, aggs, spec, method,
+                        chunk, levels, check_finite, device)
+
+
+def _batch_lattice(X: torch.Tensor, spec: ReproSpec) -> torch.Tensor:
+    return acc_mod.required_e1(X, spec, axis=0)
+
+
+def _partial_agg(values, keys, num_segments: int, aggs, spec, method, chunk,
+                 levels, check_finite, device,
+                 lattice=_batch_lattice) -> PartialState:
+    """Stage 1 with the lattice as a parameter: ``lattice(X, spec)`` gives
+    the per-column e1 to extract on (:mod:`repro_torch.ops.sharded` agrees
+    it across processes).  The level window is proved against that
+    lattice, on this batch's rows."""
     dev = resolve_device(device)
     sig = AggSignature.build(aggs, num_segments, spec)
     spec = sig.spec
@@ -399,7 +414,7 @@ def partial_agg(values, keys, num_segments: int, aggs=("sum",),
     if ncols:
         with obs_trace.span("groupby.prescan", n=int(X.shape[0]),
                             ncols=ncols) as sp:
-            e1 = acc_mod.required_e1(X, spec, axis=0)        # per-column
+            e1 = lattice(X, spec)                            # per-column
             lv, chunk_skip = _resolve_levels(levels, X, e1, spec)
             sp.set(levels=list(lv) if lv is not None else None,
                    chunk_skip=bool(chunk_skip))

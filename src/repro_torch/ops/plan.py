@@ -10,17 +10,19 @@ tables, so method choice is purely a performance decision.
 (``chunk``), the radix fan-out (``buckets``) and one line of rationale.
 
 The backend comes from the device the data lives on: ``"cpu"`` or
-``"cuda"``.  On ``"cpu"`` the cold-start model is the JAX package's CPU
-model, constant for constant, so both packages choose the same strategy.
-On ``"cuda"`` the kernels join the race, priced by H100 cold-start
-constants that have not been measured yet.  No calibration cache exists in
-this package yet: ``calibration="auto"`` finds none and the model decides.
+``"cuda"``.  Two cost sources, in priority order:
+
+* **measured** — when a calibration cache exists (see
+  :mod:`repro_torch.ops.calibrate`), per-row costs are interpolated from
+  microbenchmarks of each strategy on this machine;
+* **modeled** — cold-start per-row costs.  On ``"cpu"`` the model is the
+  JAX package's CPU model, constant for constant, so both packages choose
+  the same strategy.  On ``"cuda"`` the kernels join the race, and every
+  strategy is priced in ns per row from per-row costs measured on an H100.
 """
 from __future__ import annotations
 
 import dataclasses
-
-import numpy as np
 
 from repro_torch.core.aggregates import (  # noqa: F401  (re-exports)
     DEFAULT_CACHE_BYTES, default_chunk, onehot_block_bound, pad_and_chunk,
@@ -28,9 +30,9 @@ from repro_torch.core.aggregates import (  # noqa: F401  (re-exports)
 from repro_torch.core.prescan import window_length
 from repro_torch.core.types import ReproSpec
 from repro_torch.kernels.rsum.ops import max_block_rows
-from repro_torch.kernels.segment_rsum.ops import group_tile
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.ops import calibrate as cal_mod
 
 __all__ = [
     "GroupbyPlan", "plan_groupby", "pick_chunk", "default_chunk",
@@ -48,16 +50,19 @@ _SPILL_FACTOR = 4.0   # penalty multiplier once the table leaves the cache
 _PARTITION_COST = 8.0  # counting-sort partition: 2 streaming passes per row
 _CACHE_BYTES = DEFAULT_CACHE_BYTES
 
-# H100 cold-start constants.  NOT YET MEASURED on the card: they only order
-# the strategies (kernels first at small G, scatter at huge G) until a
-# measured calibration replaces them.
-_CUDA_LANES = 1024        # dense one-hot accumulation width of a torch bmm
-_CUDA_EAGER_COST = 16.0   # eager torch strategies: extracted ints (and the
-                          # one-hot operand) round-trip device memory, per
-                          # row per level
-_CUDA_TILE_COST = 2.0     # segment kernel: one stream of the rows per group
-                          # tile, per row per level
-_CUDA_RSUM_COST = 0.5     # flat kernel: in-register int adds, per level
+# H100 cold-start model: each strategy's constants for the features of
+# calibrate.cold_features, in ns per row, fitted by calibrate.fit_cold_model
+# to the quick grid (2^26 rows) that chip_smoke.py's calibration phase
+# measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, torch
+# 2.11.0+cu128 (the points and the fit's residuals are in PERF.md §6).
+# Scatter's spill factor is the JAX package's, not measured on the card.
+_CUDA_COLD = {
+    "scatter": (0.004945, 0.01462, 0.5281, 0.1058),
+    "sort": (0.02468, 0.01228, 0.6678, 0.08849),
+    "onehot": (0.001483, 0.03324, 0.01992),
+    "pallas": (0.007538, 0.002272),
+    "rsum": (0.004196, 0.002275),
+}
 
 
 def _clamp_chunk(method: str, chunk: int, spec: ReproSpec) -> int:
@@ -114,7 +119,7 @@ class GroupbyPlan:
     cost: float          # per-row cost (0.0 for explicit requests)
     reason: str          # one line of cost-model rationale
     buckets: int = 1     # radix partition fan-out (1 = no partitioning)
-    source: str = "model"  # 'model' | 'explicit'
+    source: str = "model"  # 'model' | 'measured' | 'explicit'
 
 
 def _cpu_costs(num_segments, nlev, extract, in_cache, buckets, candidates):
@@ -133,21 +138,16 @@ def _cpu_costs(num_segments, nlev, extract, in_cache, buckets, candidates):
     return costs
 
 
-def _cuda_costs(num_segments, ncols, nlev, extract, in_cache, buckets,
-                candidates):
-    scatter = _SCATTER_COST * (1.0 if in_cache else _SPILL_FACTOR)
-    costs = {
-        "onehot": extract + nlev * (_CUDA_EAGER_COST
-                                    + num_segments / _CUDA_LANES),
-        "scatter": extract + nlev * (_CUDA_EAGER_COST + scatter),
-        "sort": extract + nlev * (_CUDA_EAGER_COST + _SCATTER_COST) +
-        (0.0 if buckets == 1 else _PARTITION_COST + buckets / _CUDA_LANES),
-    }
-    if "pallas" in candidates:
-        tiles = -(-num_segments // group_tile(num_segments, ncols, nlev))
-        costs["pallas"] = extract + nlev * _CUDA_TILE_COST * tiles
-    if "rsum" in candidates:
-        costs["rsum"] = extract + nlev * _CUDA_RSUM_COST
+def _cuda_costs(num_segments, ncols, nlev, in_cache, candidates,
+                model=None):
+    """The H100 cold-start model (``model``: ``_CUDA_COLD``), in ns per
+    row."""
+    model = _CUDA_COLD if model is None else model
+    costs = {m: sum(c * f for c, f in zip(
+        model[m], cal_mod.cold_features(m, num_segments, ncols, nlev)))
+        for m in candidates}
+    if not in_cache and "scatter" in costs:
+        costs["scatter"] *= _SPILL_FACTOR
     return costs
 
 
@@ -157,12 +157,14 @@ def plan_groupby(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
                  calibration="auto") -> GroupbyPlan:
     """Choose an execution strategy for an (n rows, G groups, ncols columns)
     reproducible GROUPBY on ``backend`` (``"cuda"`` or ``"cpu"``).
-    Deterministic in its arguments; any choice is bit-compatible with any
-    other, so this is purely a throughput decision.  ``calibration`` is
-    accepted for signature parity: no measured cache exists yet, so the
-    cold-start model always decides.
+    Deterministic in its arguments (plus, when a calibration cache is
+    present, in that cache); any choice is bit-compatible with any other,
+    so this is purely a throughput decision.
+
+    ``levels`` is the prescan's live-level window; ``calibration`` is
+    ``"auto"`` (use the cache if one exists), ``None`` (force the
+    cold-start model), or a :class:`repro_torch.ops.calibrate.Calibration`.
     """
-    del calibration
     buckets = radix_buckets(num_segments, ncols, spec, levels=levels)
     if method != "auto":
         if method not in METHODS:
@@ -181,6 +183,11 @@ def plan_groupby(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
                         else 1, source="explicit"),
             n, num_segments, ncols, backend, levels)
 
+    cal = None
+    if calibration is not None:
+        cal = (cal_mod.for_planner(spec, backend)
+               if calibration == "auto" else calibration)
+
     candidates = ["onehot", "scatter", "sort"]
     if backend == "cuda" and spec.m <= 30:
         candidates.append("pallas")
@@ -188,21 +195,35 @@ def plan_groupby(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
         # the flat-sum kernel: only valid with a single group
         candidates.append("rsum")
 
+    costs, source = None, "model"
+    if cal is not None:
+        # fitted_cost returns None outside a method's measured-G envelope,
+        # dropping it from the measured race rather than trusting a flat
+        # extrapolation
+        costs = {m: cal_mod.fitted_cost(cal, m, n, num_segments, ncols, spec,
+                                        backend=backend)
+                 for m in candidates}
+        costs = {m: c for m, c in costs.items() if c is not None}
+        if len(costs) >= 2:
+            source = "measured"
+        else:
+            costs = None
     nlev = window_length(levels, spec)
-    extract = _EXTRACT_COST * nlev
     tb = table_bytes(num_segments, ncols, spec, levels)
     in_cache = tb <= _CACHE_BYTES
-    if backend == "cuda":
-        costs = _cuda_costs(num_segments, ncols, nlev, extract, in_cache,
-                            buckets, candidates)
-    else:
-        costs = _cpu_costs(num_segments, nlev, extract, in_cache, buckets,
-                           candidates)
+    if costs is None:
+        if backend == "cuda":
+            costs = _cuda_costs(num_segments, ncols, nlev, in_cache,
+                                candidates)
+        else:
+            costs = _cpu_costs(num_segments, nlev, _EXTRACT_COST * nlev,
+                               in_cache, buckets, candidates)
 
     best = min(costs, key=costs.get)
-    reason = (f"cost model: "
-              f"{best}={costs[best]:.1f}/row over "
-              + ", ".join(f"{m}={c:.1f}" for m, c in sorted(costs.items())
+    fmt = ".1f" if backend == "cpu" else ".3g"
+    reason = (f"{'calibrated' if source == 'measured' else 'cost model'}: "
+              f"{best}={costs[best]:{fmt}}/row over "
+              + ", ".join(f"{m}={c:{fmt}}" for m, c in sorted(costs.items())
                           if m != best)
               + f" (G={num_segments}, n={n}, ncols={ncols}, "
               f"table {'fits' if in_cache else 'spills'} cache"
@@ -213,5 +234,5 @@ def plan_groupby(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
     return _emit_plan(
         GroupbyPlan(best, c, costs[best], reason,
                     buckets=buckets if best in ("sort", "radix") else 1,
-                    source="model"),
+                    source=source),
         n, num_segments, ncols, backend, levels)

@@ -1,5 +1,7 @@
 """On the card: the hand-written CUDA kernels against their plain PyTorch
-versions, and ``groupby_agg`` on the card against the CPU, bit for bit.
+versions, ``groupby_agg`` on the card against the CPU, bit for bit, the
+measured planner's calibration on the card, and the paper's baselines on
+the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 module imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -163,3 +165,50 @@ def test_cuda_kernels_unaligned_views(cuda, spec):
         ids = raw[1:]
         assert ids.data_ptr() % 16 != 0
         _same_as_plain(x, ids, g, spec)
+
+
+@pytest.mark.cuda
+def test_calibration_on_the_card_steers_a_bit_identical_plan(cuda, tmp_path):
+    from repro_torch.ops import calibrate as cal_mod
+    from repro_torch.ops.plan import plan_groupby
+
+    spec = ReproSpec()
+    cal = cal_mod.calibrate(spec, grid=[(1 << 16, 1, 2), (1 << 16, 16, 2)],
+                            backend="cuda", path=str(tmp_path / "c.json"))
+    assert cal_mod.load(str(tmp_path / "c.json")).points == cal.points
+    assert {p["method"] for p in cal.points} == {
+        "scatter", "sort", "onehot", "pallas", "rsum"}
+    assert all(p["ns_per_row"] > 0 for p in cal.points)
+    x = _values("wide", 50_000, 2, seed=3)
+    keys = np.random.default_rng(3).integers(0, 16, 50_000).astype(np.int32)
+    plan = plan_groupby(50_000, 16, spec, ncols=2, calibration=cal)
+    assert plan.source == "measured"
+    on_card = groupby_agg(x, keys, 16, AGGS, method=plan.method)
+    on_cpu = groupby_agg(x, keys, 16, AGGS, device="cpu")
+    for name in on_cpu:
+        assert on_card[name].cpu().numpy().tobytes() == \
+            on_cpu[name].numpy().tobytes(), name
+
+
+@pytest.mark.cuda
+def test_baselines_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.core import buffers, rsum
+    from repro_torch.numerics import DecimalSpec, decimal_segment_sum
+
+    spec = ReproSpec()
+    x = _values("wide", 2048, 1, seed=4)[:, 0] / 1e3
+    ids = np.random.default_rng(4).integers(0, 8, 2048).astype(np.int32)
+    calls = (
+        lambda v, k: rsum.rsum_scalar(v[:256], spec),
+        lambda v, k: rsum.rsum_simd(v, spec, V=8),
+        lambda v, k: rsum.rsum_simd_chunked(v, spec, c=512, V=8),
+        lambda v, k: buffers.flush_all(buffers.append(
+            buffers.init(8, 16, spec, device=v.device), k, v, spec), spec),
+        lambda v, k: decimal_segment_sum(v, k, 8, DecimalSpec(9, 4)),
+    )
+    for fn in calls:
+        got = fn(torch.from_numpy(x).to(cuda), torch.from_numpy(ids).to(cuda))
+        want = fn(torch.from_numpy(x), torch.from_numpy(ids))
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and a.dtype == b.dtype
+            assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
