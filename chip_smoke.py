@@ -45,7 +45,20 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    ``repro_psum`` of the Q1 table is timed;
 8. baselines: the paper's RSUM algorithms (``core/rsum.py``), summation
    buffers and DECIMAL sums on the card at small n, bit for bit against
-   the same calls on the CPU, with their times.
+   the same calls on the CPU, with their times;
+9. stream: the durable streaming store (``repro_torch.stream``) on the
+   card over all of Q1's SF10 rows in 2^20-row batches: a ``StreamStore``
+   with a WAL (fsync always) and a snapshot halfway, recovered from both;
+   the flat stream through the rsum kernel; 2 and 4 hash shards; a
+   ``WindowedStore`` (30-day windows over l_shipdate drawn from dbgen's
+   domain, 2^24 rows) in event-time order, in a shuffled batch order and
+   recovered from its WAL; crashes injected after a WAL write and inside
+   a commit, each retried with its delivery tag; the in-process
+   ``StreamService`` with 4 writers (pipelined and serialized); and a
+   ``ReplicatedStore`` failover.  Every digest must equal one-shot
+   ``groupby_agg``'s, the segment kernel must launch at least twice per
+   batch and the rsum kernel once; ingest rows/s, WAL bytes, recovery
+   seconds and one merge of the Q1 table are timed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  Without a CUDA device, or without the
@@ -517,6 +530,351 @@ def baselines(torch, np, dev, card: str, limit: str) -> None:
     emit(phase="baselines", card=card, power_limit=limit, bsz=bsz, **rec)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the durable streaming store
+# ---------------------------------------------------------------------------
+
+def stream_digests(fp, results: dict, table) -> dict:
+    """A stream store's fingerprints of a one-shot result and table."""
+    return {"stream/table": fp.fingerprint_table(table),
+            "stream/results": fp.fingerprint_results(results)}
+
+
+def ship_days(torch, dev, n: int, seed: int):
+    """l_shipdate in days since 1992-01-01, drawn on the card from dbgen's
+    domain: o_orderdate uniform over 1992-01-01..1998-08-02, plus 1..121
+    days."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    order = torch.randint(0, sum(Q9_YEAR_DAYS), (n,), generator=gen,
+                          device=dev)
+    ship = torch.randint(1, 122, (n,), generator=gen, device=dev)
+    return (order + ship).to(torch.float64)
+
+
+def batches_of(n: int, rows: int) -> list:
+    return [slice(i, min(i + rows, n)) for i in range(0, n, rows)]
+
+
+def drive_with_faults(faultinject, make, recover, values, keys, cuts, inj):
+    """At-least-once client: deliver batch ``i`` tagged ``("chaos", i)``;
+    on an injected crash rebuild the store from durable state and retry the
+    batch.  Returns the store and each retry's answer."""
+    store, retries = make(), []
+    with faultinject.active(inj):
+        i = 0
+        while i < len(cuts):
+            try:
+                out = store.ingest(values[cuts[i]], keys[cuts[i]],
+                                   client="chaos", seq=i)
+                if retries and retries[-1][0] == i:
+                    retries[-1] = (i, bool(out.get("duplicate")))
+                i += 1
+            except faultinject.InjectedCrash:
+                store.wal.close()
+                store = recover()
+                retries.append((i, None))
+    return store, retries
+
+
+def stream_phase(torch, np, dev, values, keys, q1_want: dict,
+                 flat_want: dict, spec, card: str, limit: str, seed: int,
+                 batch_rows: int = 1 << 20, window_rows: int = 1 << 24):
+    """The durable streaming store on the card over Q1 at SF10 (every row
+    of ``values``): WAL, snapshot, recovery, the flat stream through the
+    rsum kernel, shards, windows, injected crashes, the service and
+    failover, each held to one-shot ``groupby_agg`` digests."""
+    import asyncio
+    import os
+    import tempfile
+
+    from repro_torch.kernels.rsum import ops as R
+    from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.obs import fingerprint as fp
+    from repro_torch.obs import trace
+    from repro_torch.ops import groupby_agg
+    from repro_torch.ops.partial import merge_all
+    from repro_torch.runtime import faultinject
+    from repro_torch.stream import (ReplicatedStore, ShardedStreamStore,
+                                    StreamService, StreamStore,
+                                    WindowedStore)
+
+    n = values.shape[0]
+    cuts = batches_of(n, batch_rows)
+    rec = {"card": card, "power_limit": limit, "rows": n,
+           "batch_rows": batch_rows, "batches": len(cuts)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stream_")
+    try:
+        # -- StreamStore on the card: WAL (fsync always), mid-run snapshot,
+        # recovery from the snapshot and the log
+        wal, snaps = os.path.join(tmp, "q1.wal"), os.path.join(tmp, "snaps")
+        store = StreamStore(4, Q1_AGGS, spec, wal=wal, device=dev)
+        rec["warmup_s"] = store.warmup(batch_rows)
+        trace.configure()
+        S.LAUNCHES = R.LAUNCHES = 0
+        snapshot_s = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, cut in enumerate(cuts):
+            store.ingest(values[cut], keys[cut])
+            if i == len(cuts) // 2:
+                t1 = time.perf_counter()
+                store.snapshot(snaps)
+                snapshot_s = time.perf_counter() - t1
+        store.flush()
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0 - snapshot_s
+        seg_launches = S.LAUNCHES
+        methods = sorted({e["attrs"]["method"] for e in trace.events()
+                          if e["name"] == "plan.groupby"})
+        trace.disable()
+        check(methods == ["pallas"],
+              f"stream micro-batches planned {methods}, not the kernel")
+        check(seg_launches >= 2 * len(cuts),
+              f"stream ingest launched the segment kernel {seg_launches} "
+              f"times for {len(cuts)} batches (want >= 2 per batch)")
+        got = store.fingerprints()
+        check(got == q1_want, "stream store digests != groupby_agg's")
+        plan = store._ensure_plan(batch_rows)
+        # one merge of the Q1 table: the store's state with one batch's
+        # partial (different lattices, so the merge demotes)
+        part = store.prepare(values[cuts[0]], keys[cuts[0]])
+        whole = store.state()
+        merge_ms = host_ms(torch, lambda: merge_all([whole, part]), reps=21)
+        elements = 4 * whole.table.k.shape[1] * whole.table.k.shape[2]
+        wal_bytes = os.path.getsize(wal)
+        store.wal.close()
+        del store, part, whole
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = StreamStore.recover(wal, snaps, device=dev)
+        again_fp = again.fingerprints()
+        torch.cuda.synchronize()
+        recovery_s = time.perf_counter() - t0
+        check(again_fp == q1_want, "recovered stream store digests != "
+              "groupby_agg's")
+        again.wal.close()
+        del again
+        rec["store"] = {
+            "ingest_s": ingest_s, "ingest_rows_per_s": n / ingest_s,
+            "snapshot_s": snapshot_s, "wal_bytes": wal_bytes,
+            "fsync": "always", "recovery_s": recovery_s,
+            "planned_methods": methods, "coalesce": plan.coalesce,
+            "pipeline_width": plan.pipeline,
+            "segment_launches": seg_launches,
+            "merge_ms": merge_ms, "merge_table_elements": elements,
+            "merge_ns_per_element": merge_ms * 1e6 / elements,
+            "digests_equal": True, "recovered_equal": True}
+
+        # -- the flat stream (no GROUP BY) through the rsum kernel
+        zeros = torch.zeros_like(keys)
+        flat = StreamStore(1, FLAT_AGGS, spec, device=dev)
+        S.LAUNCHES = R.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for cut in cuts:
+            flat.ingest(values[cut], zeros[cut])
+        flat.flush()
+        torch.cuda.synchronize()
+        flat_s = time.perf_counter() - t0
+        rsum_launches = R.LAUNCHES
+        check(rsum_launches >= len(cuts),
+              f"flat stream launched the rsum kernel {rsum_launches} times "
+              f"for {len(cuts)} batches (want >= 1 per batch)")
+        check(flat.fingerprints() == flat_want,
+              "flat stream digests != groupby_agg's")
+        rec["flat"] = {"ingest_s": flat_s, "ingest_rows_per_s": n / flat_s,
+                       "rsum_launches": rsum_launches,
+                       "digests_equal": True}
+        del flat, zeros
+
+        # -- ShardedStreamStore, hash policy
+        rec["sharded"] = {}
+        for shards in (2, 4):
+            sh = ShardedStreamStore(4, Q1_AGGS, spec, num_shards=shards,
+                                    policy="key_hash", device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for cut in cuts:
+                sh.ingest(values[cut], keys[cut])
+            sh.flush()
+            torch.cuda.synchronize()
+            sh_s = time.perf_counter() - t0
+            check(sh.fingerprints() == q1_want,
+                  f"{shards}-shard stream digests != groupby_agg's")
+            rec["sharded"][str(shards)] = {"ingest_s": sh_s,
+                                           "ingest_rows_per_s": n / sh_s,
+                                           "digests_equal": True}
+            del sh
+
+        # the first window_rows rows: the windowed store's WAL logs whole
+        # rows, and the service phase sends host copies
+        m = min(window_rows, n)
+        wv, wk = values[:m], keys[:m]
+        res_m, tab_m = groupby_agg(wv, wk, 4, Q1_AGGS, spec,
+                                   return_table=True, device=dev)
+        m_want = stream_digests(fp, res_m, tab_m)
+        wcuts = batches_of(m, batch_rows)
+
+        # -- WindowedStore: 30-day windows over l_shipdate, in event-time
+        # order, then in a shuffled batch order, then recovered from its WAL
+        days = ship_days(torch, dev, m, seed + 9)
+        order = torch.sort(days, stable=True).indices
+        tv, tk, td = wv[order], wk[order], days[order]
+        span = int(days.max().item()) // 30 + 1
+        retention = span                     # no row is late in any order
+        wwal = os.path.join(tmp, "window.wal")
+        runs, win_fps = {}, {}
+        perm = np.random.default_rng(seed + 10).permutation(len(wcuts))
+        for label, seq in (("in_order", range(len(wcuts))),
+                           ("shuffled", perm.tolist())):
+            win = WindowedStore(4, Q1_AGGS, spec, width=30.0,
+                                retention=retention, device=dev,
+                                wal=wwal if label == "in_order" else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in seq:
+                cut = wcuts[b]
+                win.ingest(tv[cut], tk[cut], td[cut])
+            win_fps[label] = win.fingerprints()
+            torch.cuda.synchronize()
+            runs[label] = {"ingest_s": time.perf_counter() - t0,
+                           "late_dropped": win.late_dropped,
+                           "windows": len(win.live_wids())}
+            check(win.late_dropped == 0,
+                  f"windowed ({label}) dropped {win.late_dropped} rows")
+            if label == "in_order":
+                total = win.query_sliding(retention)
+                check(fp.fingerprint_results(total)
+                      == m_want["stream/results"],
+                      "windowed store's sliding total != groupby_agg's")
+                win.wal.close()
+            del win
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wrec = WindowedStore.recover(wwal, device=dev)
+        win_fps["recovered"] = wrec.fingerprints()
+        torch.cuda.synchronize()
+        runs["recovery_s"] = time.perf_counter() - t0
+        wrec.wal.close()
+        del wrec
+        check(win_fps["in_order"] == win_fps["shuffled"]
+              == win_fps["recovered"],
+              "windowed fingerprints differ between in-order, shuffled and "
+              "recovered runs")
+        rec["windowed"] = {"rows": m, "reduced": f"{m} of {n} rows: the "
+                           "windowed WAL logs whole rows",
+                           "width_days": 30, "retention": retention,
+                           "wal_bytes": os.path.getsize(wwal),
+                           "fingerprints_equal": True, **runs}
+        del tv, tk, td, days, order
+
+        # -- fault injection: a crash after the WAL write and one inside
+        # commit; recover after each and retry the batch with its tag
+        fwal = os.path.join(tmp, "faults.wal")
+        inj = faultinject.FaultInjector(
+            [("store.commit", len(cuts) // 4, "crash"),
+             ("wal.append.logged", len(cuts) // 2, "crash")], seed=seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fstore, retries = drive_with_faults(
+            faultinject,
+            lambda: StreamStore(4, Q1_AGGS, spec, wal=fwal, device=dev),
+            lambda: StreamStore.recover(fwal, device=dev),
+            values, keys, cuts, inj)
+        fault_fp = fstore.fingerprints()
+        torch.cuda.synchronize()
+        faults_s = time.perf_counter() - t0
+        fstore.wal.close()
+        del fstore
+        check(len(inj.fired) == 2, f"faults fired: {inj.fired}")
+        check([d for _, d in retries] == [True, True],
+              f"retries after a logged batch's crash did not answer "
+              f"duplicate: {retries}")
+        check(fault_fp == q1_want, "digests after injected crashes != "
+              "groupby_agg's")
+        rec["faults"] = {"fired": [list(f[:3]) for f in inj.fired],
+                         "retries_duplicate": [d for _, d in retries],
+                         "seconds": faults_s, "digests_equal": True}
+
+        # -- StreamService in process: 4 writers, host numpy batches
+        hv, hk = wv.cpu().numpy(), wk.cpu().numpy()
+        serial = StreamStore(4, Q1_AGGS, spec, device=dev)
+        for cut in wcuts:
+            serial.ingest(hv[cut], hk[cut])
+        serial_fp = serial.fingerprints()
+        check(serial_fp == m_want, "serially fed store != groupby_agg")
+        del serial
+        writers = 4
+
+        async def feed(service):
+            async def writer(w):
+                for j in range(w, len(wcuts), writers):
+                    cut = wcuts[j]
+                    await service.ingest(hv[cut], hk[cut], client=f"w{w}",
+                                         seq=j)
+            await asyncio.gather(*(writer(w) for w in range(writers)))
+            dup = await service.ingest(hv[wcuts[0]], hk[wcuts[0]],
+                                       client="w0", seq=0)
+            return dup, await service.fingerprints()
+
+        # in turns: pipelined, serialized, serialized, pipelined
+        svc = {"pipelined": [], "serialized": []}
+        for pipelined in (True, False, False, True):
+            store = StreamStore(4, Q1_AGGS, spec, device=dev)
+            service = StreamService(store, pipelined=pipelined)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dup, got = asyncio.run(feed(service))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            service.close()
+            label = "pipelined" if pipelined else "serialized"
+            check(dup.get("duplicate") is True,
+                  f"service redelivery answered {dup}")
+            check(got == serial_fp,
+                  f"{label} service digests != the serially fed store's")
+            svc[label].append(m / secs)
+            del service, store
+        rec["service"] = {
+            "rows": m, "writers": writers,
+            "prepare_workers": StreamStore(4, Q1_AGGS, spec, device=dev)
+            .pipeline_width(batch_rows),
+            "pipelined_rows_per_s": svc["pipelined"],
+            "serialized_rows_per_s": svc["serialized"],
+            "pipelined_over_serialized": sum(svc["pipelined"])
+            / sum(svc["serialized"]),
+            "redelivery_duplicate": True, "digests_equal": True}
+
+        # -- failover: crash the primary, promote the follower
+        rep = ReplicatedStore(4, Q1_AGGS, spec,
+                              wal_path=os.path.join(tmp, "rep.wal"),
+                              snapshot_dir=os.path.join(tmp, "rep_snaps"),
+                              device=dev)
+        for j, cut in enumerate(wcuts):
+            rep.ingest(wv[cut], wk[cut], client="r", seq=j)
+            if j == len(wcuts) // 2:
+                rep.replicate()
+        before = rep.fingerprints()
+        rep.crash_primary()
+        report = rep.promote()
+        check(rep.fingerprints() == before == m_want,
+              "promoted follower's digests != the primary's")
+        check(rep.ingest(wv[wcuts[0]], wk[wcuts[0]], client="r",
+                         seq=0).get("duplicate") is True,
+              "the promoted store took a redelivered batch")
+        rep.primary.wal.close()
+        rec["failover"] = {"caught_up_records": report["caught_up_records"],
+                           "seconds": report["seconds"],
+                           "digests_equal": True}
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="stream", **rec)
+    return {"segment_launches": seg_launches, "rsum_launches": rsum_launches,
+            "batches": len(cuts)}
+
+
 def run(args) -> dict:
     import tempfile
 
@@ -600,7 +958,8 @@ def run(args) -> dict:
     # -- the same table without GROUP BY, through the rsum kernel ---------
     zeros = torch.zeros_like(keys)
     S.LAUNCHES, R.LAUNCHES = 0, 0
-    flat = groupby_agg(values, zeros, 1, FLAT_AGGS, spec)
+    flat, flat_tab = groupby_agg(values, zeros, 1, FLAT_AGGS, spec,
+                                 return_table=True)
     torch.cuda.synchronize()
     rsum_launches = R.LAUNCHES
     check(planned_method(trace) == "rsum",
@@ -844,12 +1203,21 @@ def run(args) -> dict:
     # -- phase 8: the paper's baselines -----------------------------------
     baselines(torch, np, dev, name, limit)
 
+    # -- phase 9: the durable streaming store -----------------------------
+    from repro_torch.obs import fingerprint as fp
+    streamed = stream_phase(torch, np, dev, values, keys,
+                            stream_digests(fp, q1, q1_tab),
+                            stream_digests(fp, flat, flat_tab), spec, name,
+                            limit, args.seed)
+
     kernels = [
         {"name": "segment_rsum", "route": "cuda",
          "path": S.launch_shape(n, 4, X.shape[1], nlev, 132).path,
          "source": "src/repro_torch/kernels/segment_rsum/csrc/segment_rsum.cu",
          "replaces": "src/repro/kernels/segment_rsum/kernel.py:52",
          "launches": seg_launches, "max_abs_err": max(max_err, seg_err),
+         "stream_launches": streamed["segment_launches"],
+         "stream_batches": streamed["batches"],
          "ms": seg_ms, "call_ms": seg_call_ms, "plain_ms": seg_plain_ms,
          "bound_ms": seg_bound * 1e3,
          "bound_by": "bytes" if seg_bytes / HBM_BYTES_PER_S
@@ -859,6 +1227,8 @@ def run(args) -> dict:
          "source": "src/repro_torch/kernels/rsum/csrc/rsum.cu",
          "replaces": "src/repro/kernels/rsum/kernel.py:33",
          "launches": rsum_launches, "max_abs_err": max(max_err, rsum_err),
+         "stream_launches": streamed["rsum_launches"],
+         "stream_batches": streamed["batches"],
          "ms": rsum_ms, "call_ms": rsum_call_ms, "plain_ms": rsum_plain_ms,
          "bound_ms": rsum_bound * 1e3,
          "bound_by": "bytes" if rsum_bytes / HBM_BYTES_PER_S

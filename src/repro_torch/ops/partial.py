@@ -8,7 +8,9 @@
 * :func:`finalize` — the pure deterministic function from a state to the
   result dict.
 
-``groupby_agg`` is ``finalize(partial_agg(...))``.  States carry the same
+``groupby_agg`` is ``finalize(partial_agg(...))``; the stream stores
+(:mod:`repro_torch.stream`) run :class:`PartialPipeline` per micro-batch.
+States carry the same
 table dtypes and the same :class:`AggSignature` JSON as the JAX package's,
 so states move between the two packages unchanged
 (:mod:`repro_torch.interop`).
@@ -38,8 +40,9 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.ops.plan import plan_groupby
 
 __all__ = [
-    "AGG_KINDS", "AggSignature", "PartialState", "agg_name", "partial_agg",
-    "merge", "merge_all", "finalize", "empty_partial",
+    "AGG_KINDS", "AggSignature", "PartialState", "PartialPipeline",
+    "agg_name", "partial_agg", "merge", "merge_all", "finalize",
+    "empty_partial", "pipeline_for", "state_nbytes",
 ]
 
 AGG_KINDS = ("sum", "count", "mean", "var", "std", "min", "max", "sum_prod")
@@ -564,3 +567,53 @@ def finalize(state: PartialState) -> dict:
     mins = {j: state.minv[:, i] for i, j in enumerate(mm)}
     maxs = {j: state.maxv[:, i] for i, j in enumerate(mm)}
     return _finalize_plans(names, plans, sums, mins, maxs, spec)
+
+
+# ---------------------------------------------------------------------------
+# the streaming prepare stage
+# ---------------------------------------------------------------------------
+
+def state_nbytes(state: PartialState) -> int:
+    """Bytes held by a state's leaves (backpressure accounting)."""
+    return sum(t.numel() * t.element_size()
+               for t in (state.table.k, state.table.C, state.table.e1,
+                         state.minv, state.maxv, state.rows))
+
+
+class PartialPipeline:
+    """:func:`partial_agg` bound to one :class:`AggSignature`, device and
+    configuration: the prepare stage a stream store runs per micro-batch.
+
+    The JAX package compiles the tail of this stage (``segment_table`` plus
+    MIN/MAX) per plan decision; here nothing is compiled — the stage runs
+    :func:`partial_agg`'s own code (column build, ``required_e1``, the
+    level prescan, the planner, ``segment_table`` with the hand-written
+    kernels on the card, MIN/MAX) eagerly, so a stream's states are the
+    one-shot path's bit for bit by construction.  The object is what
+    stores and shards share through :func:`pipeline_for`.
+    """
+
+    def __init__(self, sig: AggSignature, method: str = "auto",
+                 levels="auto", check_finite: bool = False, device=None):
+        self.sig = sig
+        self.method = method
+        self.levels = tuple(levels) if isinstance(levels, list) else levels
+        self.check_finite = check_finite
+        self.device = resolve_device(device)
+
+    def __call__(self, values, keys) -> PartialState:
+        """Aggregate one batch: ``partial_agg`` with this configuration."""
+        sig = self.sig
+        return _partial_agg(values, keys, sig.num_segments, sig.aggs,
+                            sig.spec, self.method, None, self.levels,
+                            self.check_finite, self.device)
+
+
+@functools.lru_cache(maxsize=64)
+def pipeline_for(sig: AggSignature, method: str = "auto", levels="auto",
+                 check_finite: bool = False,
+                 device=None) -> PartialPipeline:
+    """The shared :class:`PartialPipeline` for a configuration (stores and
+    shards with equal arguments share one)."""
+    return PartialPipeline(sig, method=method, levels=levels,
+                           check_finite=check_finite, device=device)

@@ -23,6 +23,7 @@ The backend comes from the device the data lives on: ``"cpu"`` or
 from __future__ import annotations
 
 import dataclasses
+import os
 
 from repro_torch.core.aggregates import (  # noqa: F401  (re-exports)
     DEFAULT_CACHE_BYTES, default_chunk, onehot_block_bound, pad_and_chunk,
@@ -35,8 +36,8 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.ops import calibrate as cal_mod
 
 __all__ = [
-    "GroupbyPlan", "plan_groupby", "pick_chunk", "default_chunk",
-    "onehot_block_bound", "scatter_chunk_bound", "pad_and_chunk",
+    "GroupbyPlan", "PartialPlan", "plan_groupby", "plan_partial",
+    "pick_chunk", "default_chunk", "onehot_block_bound", "scatter_chunk_bound", "pad_and_chunk",
     "table_bytes", "radix_buckets", "METHODS",
 ]
 
@@ -48,6 +49,8 @@ _EXTRACT_COST = 4.0   # EFT + scale-to-int, per row per level
 _SCATTER_COST = 32.0  # random table access, per row per level, in cache
 _SPILL_FACTOR = 4.0   # penalty multiplier once the table leaves the cache
 _PARTITION_COST = 8.0  # counting-sort partition: 2 streaming passes per row
+_MERGE_COST = 6.0      # state merge, per table element (the JAX package's
+                       # CPU constant, in the same units as _EXTRACT_COST)
 _CACHE_BYTES = DEFAULT_CACHE_BYTES
 
 # H100 cold-start model: each strategy's constants for the features of
@@ -63,6 +66,15 @@ _CUDA_COLD = {
     "pallas": (0.007538, 0.002272),
     "rsum": (0.004196, 0.002275),
 }
+
+
+# One store merge on the card, in ns per table element (G x ncols x L_eff):
+# the Q1 state merge (4 x 6 x 2 = 48 elements) that chip_smoke.py's stream
+# phase times (0.847 ms, host clock, synchronized, median of 21), divided
+# by its elements; NVIDIA H100 80GB HBM3 at a 700.00 W power limit (PERF.md
+# §6, PR 15).  A merge is a few dozen eager launches whatever the table's
+# size, so this prices small tables right and large ones high.
+_CUDA_MERGE_NS = 17640.0
 
 
 def _clamp_chunk(method: str, chunk: int, spec: ReproSpec) -> int:
@@ -236,3 +248,76 @@ def plan_groupby(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
                     buckets=buckets if best in ("sort", "radix") else 1,
                     source=source),
         n, num_segments, ncols, backend, levels)
+
+
+# ---------------------------------------------------------------------------
+# partial planning: micro-batch strategy + merge amortization
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PartialPlan:
+    """A dispatch decision for streaming partial aggregation.
+
+    ``agg`` is the per-micro-batch plan.  ``merge_rows`` prices one store
+    merge (demote + integer add + renorm over the whole ``(G, ncols,
+    L_eff)`` table, independent of the batch size) in aggregated rows, and
+    ``coalesce`` is the number of micro-batches worth buffering per store
+    merge so the merge stays at or below ``merge_frac`` of the aggregation
+    work.  ``pipeline`` is the Amdahl width of the pipelined service: the
+    parallel prepare work per batch over the amortized serial merge share,
+    clamped to the host's cores.  Every knob moves throughput, never bits.
+    """
+
+    agg: GroupbyPlan     # per-micro-batch execution plan
+    merge_rows: float    # one store merge, in row-equivalents
+    coalesce: int        # micro-batches to buffer per store merge
+    reason: str          # one line of rationale
+    pipeline: int = 1    # concurrent prepare workers worth running
+
+
+def plan_partial(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
+                 backend: str = "cuda", method: str = "auto",
+                 chunk: int | None = None, levels=None, calibration="auto",
+                 merge_frac: float = 0.25,
+                 max_coalesce: int = 64) -> PartialPlan:
+    """Plan streaming partial aggregation for ``n``-row micro-batches into a
+    ``(G, ncols)`` store on ``backend``.
+
+    On ``"cpu"`` the merge and the rows are both in the JAX package's cost
+    units, constant for constant, so both packages choose the same
+    ``coalesce`` and ``pipeline``.  On ``"cuda"`` the per-row cost is in ns
+    (the planner's H100 model or calibration), so the merge is priced in ns
+    too (``_CUDA_MERGE_NS`` per table element, measured on the card).
+    """
+    agg = plan_groupby(n, num_segments, spec, ncols=ncols, backend=backend,
+                       method=method, chunk=chunk, levels=levels,
+                       calibration=calibration)
+    nlev = window_length(levels, spec)
+    elements = num_segments * max(int(ncols), 1) * nlev
+    if backend == "cuda":
+        per_row = agg.cost if agg.cost > 0 else _cuda_costs(
+            num_segments, max(int(ncols), 1), nlev,
+            table_bytes(num_segments, ncols, spec, levels) <= _CACHE_BYTES,
+            [agg.method])[agg.method]
+        merge_rows = _CUDA_MERGE_NS * elements / per_row
+    else:
+        per_row = agg.cost if agg.cost > 0 else _EXTRACT_COST * nlev
+        merge_rows = _MERGE_COST * elements / per_row
+    n = max(int(n), 1)
+    coalesce = max(1, min(max_coalesce,
+                          -(-int(merge_rows) // max(int(merge_frac * n), 1))))
+    cores = os.cpu_count() or 1
+    pipeline = int(max(1, min(cores,
+                              n * coalesce // max(int(merge_rows), 1))))
+    reason = (f"merge ≈ {merge_rows:.0f} row-equivalents vs {n}-row "
+              f"batches; coalesce {coalesce} batch(es) holds merge "
+              f"overhead ≤ {merge_frac:.0%}; pipeline width {pipeline} "
+              f"of {cores} core(s) ({agg.method}/{agg.source}, {backend})")
+    obs_trace.event("plan.partial", method=agg.method, chunk=agg.chunk,
+                    merge_rows=merge_rows, coalesce=coalesce, n=n,
+                    pipeline=pipeline, G=int(num_segments),
+                    ncols=int(ncols), backend=backend, reason=reason)
+    obs_metrics.counter("repro_plan_partial_total",
+                        method=agg.method).inc()
+    return PartialPlan(agg=agg, merge_rows=merge_rows, coalesce=coalesce,
+                       reason=reason, pipeline=pipeline)

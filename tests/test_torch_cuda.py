@@ -212,3 +212,61 @@ def test_baselines_on_the_card_equal_the_cpu(cuda):
         for a, b in zip(got, want):
             assert a.device.type == "cuda" and a.dtype == b.dtype
             assert a.cpu().numpy().tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_stream_store_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """A card store (card tensors and host batches, a WAL, a snapshot, a
+    recovery, 2 hash shards, a window ring) holds the CPU store's bits, and
+    its micro-batches launch the kernels."""
+    from repro_torch import stream
+    from repro_torch.obs import fingerprint as fp
+
+    spec = ReproSpec()
+    x = _values("wide", 40_000, 2, seed=5)
+    keys = np.random.default_rng(5).integers(0, 13, 40_000).astype(np.int32)
+    cuts = [slice(i, i + 5000) for i in range(0, 40_000, 5000)]
+    cpu = stream.StreamStore(13, AGGS, spec, device="cpu")
+    for c in cuts:
+        cpu.ingest(x[c], keys[c])
+    before = seg_ops.LAUNCHES
+    card = stream.StreamStore(13, AGGS, spec, wal=tmp_path / "a.wal")
+    assert card.device.type == "cuda"
+    xc, kc = torch.from_numpy(x).to(cuda), torch.from_numpy(keys).to(cuda)
+    for i, c in enumerate(cuts):
+        card.ingest(xc[c] if i % 2 else x[c], kc[c] if i % 2 else keys[c],
+                    client="t", seq=i)
+        if i == 3:
+            card.snapshot(str(tmp_path / "snaps"))
+    assert seg_ops.LAUNCHES - before >= 2 * len(cuts)
+    assert card.state().table.k.device.type == "cuda"
+    assert card.fingerprints() == cpu.fingerprints()
+    card.wal.close()
+    again = stream.StreamStore.recover(tmp_path / "a.wal",
+                                       str(tmp_path / "snaps"))
+    assert again.fingerprints() == cpu.fingerprints()
+    assert again.ingest(x[cuts[0]], keys[cuts[0]], client="t",
+                        seq=0)["duplicate"]
+    again.wal.close()
+    sharded = stream.ShardedStreamStore(13, AGGS, spec, num_shards=2,
+                                        policy="key_hash")
+    for c in cuts:
+        sharded.ingest(xc[c], kc[c])
+    assert sharded.fingerprints() == cpu.fingerprints()
+    t = np.random.default_rng(6).uniform(0.0, 40.0, 40_000)
+    wins = [stream.WindowedStore(13, AGGS, spec, width=10.0, retention=2,
+                                 device=d) for d in ("cpu", cuda)]
+    for c in cuts:
+        wins[0].ingest(x[c], keys[c], t[c])
+        wins[1].ingest(xc[c], kc[c], torch.from_numpy(t[c]).to(cuda))
+    assert wins[0].fingerprints() == wins[1].fingerprints()
+    assert wins[0].late_dropped == wins[1].late_dropped
+    flat = stream.StreamStore(1, [("sum", 0), ("count",)], spec)
+    before = rsum_ops.LAUNCHES
+    for c in cuts:
+        flat.ingest(xc[c], torch.zeros_like(kc[c]))
+    assert rsum_ops.LAUNCHES - before >= len(cuts)
+    res = groupby_agg(x, np.zeros_like(keys), 1, [("sum", 0), ("count",)],
+                      device="cpu")
+    assert flat.fingerprints()["stream/results"] == \
+        fp.fingerprint_results(res)
