@@ -60,6 +60,22 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    batch and the rsum kernel once; ingest rows/s, WAL bytes, recovery
    seconds and one merge of the Q1 table are timed.
 
+10. train: the port's reproducible training (``repro_torch.launch``) of
+   smollm-135m at full width and depth (30 layers, d=576, vocab 49152,
+   bfloat16), seq 1024, global batch 8 in quanta of one sequence, 3 steps,
+   in a spawned rank over NCCL: ``baseline``, ``repro_zero2``, ``repro``, a
+   rerun and a restart from an injected failure at step 2 through a
+   checkpoint — losses, parameter and optimizer digests equal across the
+   repro runs — and one ``repro_embed`` step; the same width at 2 layers
+   (seq 256, 2 steps) at 1 rank and at 2 and 4 ranks over gloo with card
+   tensors, digests equal; the global norm of one quantum's full-width
+   gradient through the rsum kernel once per leaf, with the CPU's bits;
+   the embedding gradient's GROUPBY (G = 49152, 576 columns) under
+   ``scatter``, the planner's pick and the segment kernel, one table; both
+   kernels against their plain versions at these shapes.  Prints ms per
+   step of each mode (host clock, synchronized), the
+   ``repro_zero2``/``baseline`` ratio, launches per step and peak memory.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -69,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -343,11 +360,12 @@ def q9_table(torch, dev, orders: int, seed: int):
     return amount.to(torch.float32)[:, None].contiguous(), keys
 
 
-def profile_q1(torch, fn, e2e_ms: float, card: str, limit: str) -> None:
-    """Where one end-to-end call spends device time: device time per torch
-    operation and per kernel, and the device's idle share of the unprofiled
-    end-to-end time (busy time summed over kernels only, so an operation
-    and the kernels it launched are not counted twice)."""
+def device_profile(torch, fn, wall_ms: float) -> dict:
+    """Where one call of ``fn`` spends device time: device time per torch
+    operation and per kernel, the kernel launches, and the device's idle
+    share of the unprofiled wall time ``wall_ms`` (busy time summed over
+    kernels only, so an operation and the kernels it launched are not
+    counted twice)."""
     from torch.profiler import ProfilerActivity, profile
 
     def device_us(e):
@@ -358,11 +376,13 @@ def profile_q1(torch, fn, e2e_ms: float, card: str, limit: str) -> None:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops, kernels = {}, {}
+    ops, kernels, launches = {}, {}, 0
     for e in prof.key_averages():
         if device_us(e) <= 0:
             continue
-        side = kernels if str(e.device_type).endswith("CUDA") else ops
+        on_card = str(e.device_type).endswith("CUDA")
+        side = kernels if on_card else ops
+        launches += e.count if on_card else 0
         key = e.key[:100]
         side[key] = side.get(key, 0.0) + device_us(e) / 1e3
     busy_ms = sum(kernels.values())
@@ -370,12 +390,20 @@ def profile_q1(torch, fn, e2e_ms: float, card: str, limit: str) -> None:
     def top(d):
         return dict(sorted(d.items(), key=lambda kv: -kv[1])[:8])
 
-    emit(phase="profile_q1", card=card, power_limit=limit,
-         device_busy_ms=busy_ms, e2e_ms=e2e_ms,
-         # None: the profiler saw no kernel (not measured)
-         device_idle_share=max(0.0, 1.0 - busy_ms / e2e_ms) if busy_ms
-         else None,
-         top_op_device_ms=top(ops), top_kernel_device_ms=top(kernels))
+    return {"device_busy_ms": busy_ms, "wall_ms": wall_ms,
+            "kernel_launches": launches,
+            # None: the profiler saw no kernel (not measured)
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms)
+            if busy_ms else None,
+            "top_op_device_ms": top(ops), "top_kernel_device_ms": top(kernels)}
+
+
+def profile_q1(torch, fn, e2e_ms: float, card: str, limit: str) -> None:
+    """:func:`device_profile` of one end-to-end Q1 call."""
+    rec = device_profile(torch, fn, e2e_ms)
+    rec["e2e_ms"] = rec.pop("wall_ms")
+    rec.pop("kernel_launches")
+    emit(phase="profile_q1", card=card, power_limit=limit, **rec)
 
 
 def same_results(a: dict, b: dict) -> bool:
@@ -394,7 +422,7 @@ def planned_method(trace) -> str:
 # phases 6-8: calibration, sharded GROUPBY, the paper's baselines
 # ---------------------------------------------------------------------------
 
-def sharded_rank(rank: int, world: int, backend: str, store: str, out: str,
+def sharded_rank(rank: int, world: int, store: str, out: str, backend: str,
                  n: int, seed: int) -> None:
     """One rank of the sharded phase: draw the Q1 table of ``n`` rows from
     ``seed`` on the card (every rank the same), aggregate its contiguous
@@ -455,29 +483,9 @@ def sharded_rank(rank: int, world: int, backend: str, store: str, out: str,
 
 def run_sharded(world: int, backend: str, n: int, seed: int,
                 timeout_s: float = 300.0) -> list:
-    """Spawn ``world`` ranks of :func:`sharded_rank`, wait at most
-    ``timeout_s``, kill any that are left, and return their records."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.spawn(sharded_rank,
-                       args=(world, backend, str(Path(tmp, "store")), tmp,
-                             n, seed), nprocs=world, join=False)
-        deadline = time.monotonic() + timeout_s
-        try:
-            while not ctx.join(timeout=5):
-                check(time.monotonic() < deadline,
-                      f"{world} {backend} ranks did not finish in "
-                      f"{timeout_s} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                    proc.join()
-        return [json.loads(Path(tmp, f"rank{r}.json").read_text())
-                for r in range(world)]
+    """Spawn ``world`` ranks of :func:`sharded_rank` and return their
+    records."""
+    return spawn_ranks(sharded_rank, world, (backend, n, seed), timeout_s)
 
 
 def baselines(torch, np, dev, card: str, limit: str) -> None:
@@ -875,6 +883,413 @@ def stream_phase(torch, np, dev, values, keys, q1_want: dict,
             "batches": len(cuts)}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: reproducible training of smollm-135m
+
+TRAIN_ARCH = "smollm-135m"
+RUN_KEYS = ("losses", "loss_trajectory", "params", "opt")
+
+
+def spawn_ranks(fn, world: int, args: tuple, timeout_s: float) -> list:
+    """Spawn ``world`` ranks of ``fn(rank, world, store, out, *args)``,
+    joined by a ``file://`` store in a temporary directory; wait at most
+    ``timeout_s``, kill any that are left, and return each rank's
+    ``rank<r>.json``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(fn, args=(world, str(Path(tmp, "store")), tmp, *args),
+                       nprocs=world, join=False)
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"{world} ranks of {fn.__name__} did not finish in "
+                      f"{timeout_s} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(world)]
+
+
+def _ms(torch, dev, fn, reps: int = 5) -> float:
+    """CUDA-event median on the card, host clock on the CPU (rehearsal)."""
+    if dev.type == "cuda":
+        return cuda_ms(torch, fn, reps=reps)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(by_bytes, by_ops) * 1e3, \
+        "bytes" if by_bytes >= by_ops else "operations"
+
+
+def train_checks(torch, cfg, dev, seed: int, seq: int) -> dict:
+    """The training path's kernels at its own shapes, in a rank process.
+
+    * the global norm of one full-width gradient tree (one quantum's
+      gradients) on the card, through the rsum kernel once per leaf, and on
+      the CPU from a host copy: the norm's bytes, the launches, and the
+      rsum kernel against its plain version on the card at every leaf's
+      shape, timed at the largest (with ``torch.sum`` as the library call);
+    * the embedding gradient's GROUPBY (G = vocab, d_model columns, one
+      quantum's rows) under ``scatter``, the planner's ``auto`` and the
+      segment kernel (``pallas``): table digests, times, the planner's
+      pick, and the kernel against its plain version (``index_add_`` of
+      the float32 rows as the library call).
+    """
+    from repro_torch import tree as tree_mod
+    from repro_torch.core import accumulator as acc_mod
+    from repro_torch.core.segment import segment_rsum
+    from repro_torch.core.types import ReproSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.rsum import ops as R
+    from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_batch
+    from repro_torch.launch.train_step import TrainConfig, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.obs.fingerprint import fingerprint_table
+    from repro_torch.ops.plan import plan_groupby
+    from repro_torch.optim import grad as grad_mod
+
+    spec = ReproSpec()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    step = make_train_step(cfg, TrainConfig(grad_mode="repro"), make_mesh(),
+                           ShapeConfig("train", seq, 1, "train"), device=dev)
+    params = lm.init_params(seed, cfg, dev)
+    mb = build_batch(DataConfig(seed=seed, global_batch=1, seq_len=seq,
+                                vocab=cfg.vocab), cfg, 0, 1, 1, device=dev)
+    mb = {k: v[0] for k, v in mb.items()}
+    grads, _ = step.grad_fn(params, mb)
+    leaves = tree_mod.leaves(grads)
+    out = {"leaves": len(leaves), "elements": sum(g.numel() for g in leaves)}
+    if dev.type == "cuda":
+        # one quantum's forward + backward (the bulk of a baseline step),
+        # and what repro_zero2 adds per quantum: tree_to_acc, the exact
+        # reduce-scatter over the rank's group and the merge
+        zstep = make_train_step(cfg, TrainConfig(), make_mesh(),
+                                ShapeConfig("train", seq, 1, "train"),
+                                device=dev)
+        zero = zstep.zero_dims(params)
+        shard0 = tree_mod.tree_map(zstep._scatter_one, grad_mod.tree_to_acc(
+            grads, spec), zero)
+
+        def quantum():
+            step.grad_fn(params, mb)
+
+        def accumulate():
+            accs = tree_mod.tree_map(zstep._scatter_one,
+                                     grad_mod.tree_to_acc(grads, spec), zero)
+            grad_mod.acc_merge_tree(shard0, accs, spec)
+
+        for label, fn in (("quantum_grad", quantum),
+                          ("zero2_accumulate", accumulate)):
+            wall = host_ms(torch, fn, reps=3)
+            out[f"profile_{label}"] = device_profile(torch, fn, wall)
+        del shard0
+    del params
+
+    R.LAUNCHES = 0
+    sync()
+    t0 = time.perf_counter()
+    norm = grad_mod.repro_global_norm(grads, spec)
+    sync()
+    out["norm_card_ms"] = (time.perf_counter() - t0) * 1e3
+    out["norm_rsum_launches"] = R.LAUNCHES
+    host = tree_mod.tree_map(lambda g: g.cpu(), grads)
+    t0 = time.perf_counter()
+    on_cpu = grad_mod.repro_global_norm(host, spec)
+    out["norm_cpu_s"] = time.perf_counter() - t0
+    out["norm_card"] = norm.cpu().numpy().tobytes().hex()
+    out["norm_cpu"] = on_cpu.numpy().tobytes().hex()
+    out["norm"] = float(norm)
+    del host
+
+    # the rsum kernel against its plain version at every leaf's shape
+    worst, big = 0, None
+    for g in leaves:
+        x = torch.square(g.to(torch.float32)).reshape(-1, 1).contiguous()
+        e1 = acc_mod.required_e1(x, spec, axis=0)
+        A, inv = R.ladder(e1, spec, (0, spec.L))
+        if dev.type == "cuda":
+            kc = R.rsum_levels_kernel(x, A, inv, spec)
+            kp = R.rsum_levels_plain(x, A, inv, spec)
+            for a, b in zip(kc, kp):
+                worst = max(worst, int((a.long() - b.long()).abs().max()))
+        if big is None or x.shape[0] > big[0].shape[0]:
+            big = (x, A, inv)
+    x, A, inv = big
+    n = x.shape[0]
+    kernel = R.rsum_levels_kernel if dev.type == "cuda" \
+        else R.rsum_levels_plain
+    bound, by = _bound_ms(4 * n, 6 * n * spec.L)
+    out["rsum"] = {
+        "n": n, "max_abs_err": worst,
+        "ms": _ms(torch, dev, lambda: kernel(x, A, inv, spec), reps=10),
+        "plain_ms": _ms(torch, dev, lambda: R.rsum_levels_plain(
+            x, A, inv, spec), reps=3),
+        "library_ms": _ms(torch, dev, lambda: x.sum(dim=0), reps=10),
+        "bound_ms": bound, "bound_by": by}
+    del grads, leaves, big, x
+
+    # the embedding gradient's GROUPBY, raced
+    ids = mb["tokens"].reshape(-1)
+    rows, d, G = ids.shape[0], cfg.d_model, cfg.vocab
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 11)
+    cot = torch.randn((rows, d), generator=gen, device=dev) * 1e-3
+    cot[::7] *= 1e-20                       # magnitudes the levels must keep
+    plan = plan_groupby(rows, G, spec, ncols=d, backend=dev.type)
+    race = {}
+    for method in ("scatter", "auto", "pallas"):
+        S.LAUNCHES = 0
+        acc = segment_rsum(cot, ids, G, spec, method=method, device=dev)
+        sync()
+        race[method] = {
+            "digest": fingerprint_table(acc, spec),
+            "segment_launches": S.LAUNCHES,
+            "ms": _ms(torch, dev, lambda m=method: segment_rsum(
+                cot, ids, G, spec, method=m, device=dev), reps=5)}
+        del acc
+    e1 = acc_mod.required_e1(cot, spec).expand(d).contiguous()
+    A, inv = R.ladder(e1, spec, (0, spec.L))
+    skernel = S.segment_levels_kernel if dev.type == "cuda" \
+        else S.segment_levels_plain
+    kc = skernel(cot, ids, G, A, inv, spec)
+    kp = S.segment_levels_plain(cot, ids, G, A, inv, spec)
+    serr = max(int((a.long() - b.long()).abs().max()) for a, b in zip(kc, kp))
+    del kc, kp
+    table = torch.zeros((G, d), device=dev)
+    lids = ids.to(torch.int64)
+    bound, by = _bound_ms(4 * rows + 4 * rows * d + 2 * 4 * G * d * spec.L,
+                          5 * rows * d * spec.L)
+    out["embed"] = {
+        "rows": rows, "G": G, "ncols": d, "planner": plan.method,
+        "race": race, "max_abs_err": serr,
+        "path": S.launch_shape(rows, G, d, spec.L, 132).path,
+        "ms": _ms(torch, dev, lambda: skernel(cot, ids, G, A, inv, spec)),
+        "plain_ms": _ms(torch, dev, lambda: S.segment_levels_plain(
+            cot, ids, G, A, inv, spec), reps=3),
+        "library_ms": _ms(torch, dev, lambda: table.index_add_(0, lids,
+                                                               cot)),
+        "bound_ms": bound, "bound_by": by}
+    return out
+
+
+def train_rank(rank: int, world: int, store: str, out: str, backend: str,
+               plan: dict) -> None:
+    """One rank of the training phase: join ``backend``, run ``plan``'s
+    jobs in order through ``repro_torch.launch.train.train_loop`` (fresh
+    weights from the seed each time), and write per job the losses (as
+    float hex), the run's fingerprints, the step times, the kernels'
+    launches and the peak card memory; with ``plan["checks"]``, rank 0 adds
+    :func:`train_checks`."""
+    import dataclasses
+    import datetime
+    import os
+    import tempfile
+
+    # one cuBLAS workspace setting for every mode of the process (the repro
+    # modes need it fixed before cuBLAS first sets up)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.kernels.rsum import ops as R
+    from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.launch.train import train_loop
+    from repro_torch.launch.train_step import TrainConfig
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig
+
+    dev = torch.device(plan["device"], 0) if plan["device"] == "cuda" \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=240),
+        device_id=dev if backend == "nccl" else None)
+    cfg = configs.get_config(plan["arch"])
+    if plan["reduced"]:
+        cfg = cfg.reduced()
+    recs = {}
+    try:
+        for job in plan["jobs"]:
+            jcfg = cfg if job.get("n_layers") is None else \
+                dataclasses.replace(cfg, n_layers=job["n_layers"])
+            shape = ShapeConfig("train", job["seq"], job["batch"], "train")
+            tc = TrainConfig(grad_mode=job["mode"], mb_size=1,
+                             repro_embed=job.get("repro_embed", False),
+                             adamw=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                               total_steps=job["steps"]))
+            fail_at = job.get("fail_at")
+            with tempfile.TemporaryDirectory() as ckdir:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                R.LAUNCHES = S.LAUNCHES = 0
+                t0 = time.perf_counter()
+                res = train_loop(jcfg, shape, tc, steps=job["steps"],
+                                 seed=plan["seed"], log_every=10 ** 9,
+                                 device=dev,
+                                 ckpt_dir=ckdir if fail_at is not None
+                                 else None,
+                                 ckpt_every=job.get("ckpt_every", 50),
+                                 resume=fail_at is not None, fail_at=fail_at)
+                secs = time.perf_counter() - t0
+                launches = (R.LAUNCHES, S.LAUNCHES)
+            recs[job["label"]] = {
+                "losses": [float(l).hex() for _, l in res.losses],
+                "loss_values": [l for _, l in res.losses],
+                **res.fingerprints, "step_s": res.step_seconds,
+                "restarts": res.restarts, "seconds": secs,
+                "steps_run": len(res.step_seconds),
+                "rsum_launches": launches[0],
+                "segment_launches": launches[1],
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None}
+        if plan["checks"] and rank == 0:
+            recs["checks"] = train_checks(torch, cfg, dev, plan["seed"],
+                                          plan["jobs"][0]["seq"])
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def _step_ms(rec: dict) -> float:
+    """Median host-clock ms of a run's steps after its first (warm-up)."""
+    s = rec["step_s"][1:] or rec["step_s"]
+    return statistics.median(s) * 1e3
+
+
+def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
+                arch: str = TRAIN_ARCH, reduced: bool = False,
+                seq: int = 1024, small_seq: int = 256,
+                steps: int = 3) -> dict:
+    """Phase 10: the port's reproducible training of ``arch`` at full
+    width.  One rank over NCCL (gloo when rehearsing on the CPU) at full
+    depth: ``baseline``, ``repro_zero2``, ``repro``, a rerun, a restart
+    from an injected failure at step 2, and one ``repro_embed`` step; then
+    2 layers at 1, 2 and 4 ranks (gloo with card tensors).  Returns the
+    numbers the kernels line carries."""
+    t_phase = time.perf_counter()
+    full = dict(seq=seq, batch=8, steps=steps)
+    small = dict(label="depth2", mode="repro_zero2", n_layers=2,
+                 seq=small_seq, batch=8, steps=2)
+    jobs = [dict(label="baseline", mode="baseline", **full),
+            dict(label="repro_zero2", mode="repro_zero2", **full),
+            dict(label="repro", mode="repro", **full),
+            dict(label="repro_zero2_rerun", mode="repro_zero2", **full),
+            dict(label="repro_zero2_restart", mode="repro_zero2", fail_at=2,
+                 ckpt_every=2, **full),
+            dict(label="repro_embed", mode="repro_zero2", repro_embed=True,
+                 seq=seq, batch=8, steps=1),
+            small]
+    plan = {"arch": arch, "reduced": reduced, "device": device,
+            "seed": seed, "jobs": jobs, "checks": True}
+    backend = "nccl" if device == "cuda" else "gloo"
+    one = spawn_ranks(train_rank, 1, (backend, plan), 900.0)[0]
+    z2 = one["repro_zero2"]
+    for label in ("repro", "repro_zero2_rerun", "repro_zero2_restart"):
+        for key in RUN_KEYS:
+            check(one[label][key] == z2[key],
+                  f"train: {label}'s {key} != repro_zero2's")
+    check(one["repro_zero2_restart"]["restarts"] == 1,
+          "train: the injected failure did not restart the run")
+    for label, rec in one.items():
+        if label != "checks":
+            check(all(math.isfinite(v) for v in rec["loss_values"]),
+                  f"train: {label} has a loss that is not finite")
+    check(device != "cuda" or z2["rsum_launches"] > 0,
+          "train: repro_zero2 did not launch the rsum kernel")
+    c = one["checks"]
+    check(device != "cuda" or c["norm_rsum_launches"] == c["leaves"],
+          f"train: the global norm launched rsum {c['norm_rsum_launches']} "
+          f"times for {c['leaves']} leaves")
+    check(c["norm_card"] == c["norm_cpu"],
+          "train: the global norm's bits differ between the card and the CPU")
+    check(c["rsum"]["max_abs_err"] == 0 and c["embed"]["max_abs_err"] == 0,
+          "train: a kernel differs from its plain version at the training "
+          "shapes")
+    race = c["embed"]["race"]
+    check(race["auto"]["digest"] == race["scatter"]["digest"]
+          == race["pallas"]["digest"],
+          "train: the embedding GROUPBY differs between scatter, auto and "
+          "pallas")
+    check(device != "cuda" or race["pallas"]["segment_launches"] > 0,
+          "train: method='pallas' did not launch the segment kernel")
+
+    t_multi = time.perf_counter()
+    multi = {}
+    for world in (2, 4):
+        recs = spawn_ranks(train_rank, world, (
+            "gloo", {**plan, "jobs": [small], "checks": False}),
+            max(10.0, 300.0 - (time.perf_counter() - t_multi)))
+        for r, rec in enumerate(recs):
+            for key in RUN_KEYS:
+                check(rec["depth2"][key] == one["depth2"][key],
+                      f"train: 2 layers at {world} ranks (rank {r}): {key} "
+                      "!= one rank's")
+        multi[str(world)] = {"ms_per_step": _step_ms(recs[0]["depth2"]),
+                             "seconds": recs[0]["depth2"]["seconds"]}
+    multi_s = time.perf_counter() - t_multi
+    check(multi_s < 300.0, f"train: 2 and 4 gloo ranks took {multi_s} s")
+
+    modes = {label: {"ms_per_step": _step_ms(one[label]),
+                     "step_s": one[label]["step_s"],
+                     "peak_mem_gb": one[label]["peak_mem_gb"],
+                     "rsum_launches_per_step":
+                     one[label]["rsum_launches"] / one[label]["steps_run"],
+                     "segment_launches_per_step":
+                     one[label]["segment_launches"] / one[label]["steps_run"]}
+             for label in ("baseline", "repro_zero2", "repro",
+                           "repro_embed", "depth2")}
+    rec = {"arch": arch, "reduced": reduced, "seq": seq, "global_batch": 8,
+           "mb_size": 1, "steps": steps,
+           "losses": z2["loss_values"], "params_digest": z2["params"],
+           "repro_equals_repro_zero2": True, "rerun_equal": True,
+           "restart_equal": True, "modes": modes,
+           "repro_zero2_over_baseline": modes["repro_zero2"]["ms_per_step"]
+           / modes["baseline"]["ms_per_step"],
+           "repro_over_baseline": modes["repro"]["ms_per_step"]
+           / modes["baseline"]["ms_per_step"],
+           "baseline_losses": one["baseline"]["loss_values"],
+           "depth2": {"seq": small_seq, "steps": 2, "ranks_equal": True,
+                      "one_rank_ms_per_step": modes["depth2"]["ms_per_step"],
+                      "gloo": multi, "gloo_seconds": multi_s},
+           "global_norm": {k: c[k] for k in (
+               "norm", "leaves", "elements", "norm_rsum_launches",
+               "norm_card_ms", "norm_cpu_s")},
+           "embed_grad": {k: v for k, v in c["embed"].items()
+                          if k != "race"},
+           "embed_race": {m: {"ms": v["ms"],
+                              "segment_launches": v["segment_launches"]}
+                          for m, v in race.items()},
+           "rsum_at_largest_leaf": c["rsum"],
+           "profiles": {k[len("profile_"):]: v for k, v in c.items()
+                        if k.startswith("profile_")},
+           "seconds": time.perf_counter() - t_phase}
+    emit(phase="train", card=name, power_limit=limit, **rec)
+    return rec
+
+
 def run(args) -> dict:
     import tempfile
 
@@ -1209,6 +1624,12 @@ def run(args) -> dict:
                             stream_digests(fp, q1, q1_tab),
                             stream_digests(fp, flat, flat_tab), spec, name,
                             limit, args.seed)
+    del values, keys
+    torch.cuda.empty_cache()
+
+    # -- phase 10: reproducible training of smollm-135m -------------------
+    trained = train_phase(name, limit, args.seed)
+    tr_rsum, tr_embed = trained["rsum_at_largest_leaf"], trained["embed_grad"]
 
     kernels = [
         {"name": "segment_rsum", "route": "cuda",
@@ -1218,6 +1639,15 @@ def run(args) -> dict:
          "launches": seg_launches, "max_abs_err": max(max_err, seg_err),
          "stream_launches": streamed["segment_launches"],
          "stream_batches": streamed["batches"],
+         "train": {"shape": [tr_embed["rows"], tr_embed["G"],
+                             tr_embed["ncols"]], "path": tr_embed["path"],
+                   "launches_per_step": trained["modes"]["repro_zero2"][
+                       "segment_launches_per_step"],
+                   "forced_pallas_launches": trained["embed_race"][
+                       "pallas"]["segment_launches"],
+                   **{k: tr_embed[k] for k in (
+                       "planner", "max_abs_err", "ms", "plain_ms",
+                       "library_ms", "bound_ms", "bound_by")}},
          "ms": seg_ms, "call_ms": seg_call_ms, "plain_ms": seg_plain_ms,
          "bound_ms": seg_bound * 1e3,
          "bound_by": "bytes" if seg_bytes / HBM_BYTES_PER_S
@@ -1229,6 +1659,13 @@ def run(args) -> dict:
          "launches": rsum_launches, "max_abs_err": max(max_err, rsum_err),
          "stream_launches": streamed["rsum_launches"],
          "stream_batches": streamed["batches"],
+         "train": {"launches_per_step": trained["modes"]["repro_zero2"][
+                       "rsum_launches_per_step"],
+                   "norm_launches": trained["global_norm"][
+                       "norm_rsum_launches"],
+                   **{k: tr_rsum[k] for k in (
+                       "n", "max_abs_err", "ms", "plain_ms", "library_ms",
+                       "bound_ms", "bound_by")}},
          "ms": rsum_ms, "call_ms": rsum_call_ms, "plain_ms": rsum_plain_ms,
          "bound_ms": rsum_bound * 1e3,
          "bound_by": "bytes" if rsum_bytes / HBM_BYTES_PER_S

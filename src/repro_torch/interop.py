@@ -6,19 +6,24 @@ A state is its leaves — ``table.k``, ``table.C``, ``table.e1``, ``minv``,
 the same bytes in both packages).  Tables keep their int32/int64 dtypes and
 every leaf keeps its shape, so the bytes move unchanged and a carried state
 merges and finalizes as if the port had computed it.
+
+Model weights cross as nested dicts of arrays with the JAX package's keys
+and shapes (:func:`lm_params_from_numpy`, :func:`lm_params_to_numpy`), so
+both packages compute from the same weights.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_mod
 from repro_torch.core.accumulator import ReproAcc
 from repro_torch.core.types import ReproSpec
 from repro_torch.device import resolve_device
 from repro_torch.ops.partial import AggSignature, PartialState
 
 __all__ = ["LEAVES", "acc_from_numpy", "acc_to_numpy", "state_from_numpy",
-           "state_to_numpy"]
+           "state_to_numpy", "lm_params_from_numpy", "lm_params_to_numpy"]
 
 LEAVES = ("k", "C", "e1", "minv", "maxv", "rows")
 
@@ -69,3 +74,33 @@ def state_to_numpy(state: PartialState):
         state.table.k, state.table.C, state.table.e1, state.minv,
         state.maxv, state.rows))
     return leaves, state.sig.to_json()
+
+
+def _tensor_of(a) -> torch.Tensor:
+    """A numpy array (bfloat16 ones through their 16 bits) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_numpy(tree, device=None):
+    """The port's parameter tree from the JAX package's ``init_params`` tree
+    as numpy arrays (``jax.tree.map(np.asarray, params)``): the same keys,
+    shapes, dtypes and bits, on ``device``."""
+    dev = resolve_device(device)
+    return tree_mod.tree_map(lambda a: _tensor_of(a).to(dev), tree)
+
+
+def _array_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes       # numpy's bfloat16 (a dependency of JAX)
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def lm_params_to_numpy(params):
+    """Inverse of :func:`lm_params_from_numpy`: a nested dict of numpy
+    arrays (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    return tree_mod.tree_map(_array_of, params)

@@ -45,20 +45,27 @@ MAGIC = b"repro-fp/%d\n" % LAYOUT_VERSION
 MANIFEST_KEY = "_manifest"
 
 
-def _host(arr) -> np.ndarray:
+def _host(arr) -> tuple[np.ndarray, str]:
+    """A little-endian host array of the leaf and its dtype's name.  A
+    bfloat16 tensor is hashed as its 16 bits under the name "bfloat16", the
+    bytes and name of the JAX package's bfloat16 arrays."""
+    name = None
     if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
+        t = arr.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t, name = t.view(torch.int16), "bfloat16"
+        arr = t.numpy()
     a = np.ascontiguousarray(np.asarray(arr))
     if a.dtype.byteorder == ">" or (
             a.dtype.byteorder == "=" and sys.byteorder == "big"):
         a = a.astype(a.dtype.newbyteorder("<"))
-    return a
+    return a, name or a.dtype.name
 
 
 def _update_array(h, name: str, arr) -> None:
-    a = _host(arr)
+    a, dname = _host(arr)
     h.update(name.encode() + b"\0")
-    h.update(a.dtype.name.encode() + b"\0")
+    h.update(dname.encode() + b"\0")
     h.update(np.int64([a.ndim, *a.shape]).astype("<i8").tobytes())
     h.update(a.tobytes())
 

@@ -175,6 +175,36 @@ def test_zeros_and_eft_primitives_match_reference():
               eft.exponent(torch.from_numpy(x)), "exponent")
 
 
+@pytest.mark.parametrize("name", ["float32", "float64"])
+def test_ulp_eft_and_int_scaling_match_reference(name):
+    """``ulp``, ``eft`` against a running sum in its window, and the exact
+    ``scale_to_int`` / ``int_to_scaled`` round trip: same bytes as the JAX
+    package's on wide magnitudes, zeros and subnormals."""
+    rspec, spec = _specs((name, 2, None))
+    dt = _np_dtype(spec)
+    x = _mixed((999,), dt, seed=11)
+    _same(ref_eft.ulp(jnp.asarray(x)), eft.ulp(torch.from_numpy(x)), "ulp")
+    rng = np.random.default_rng(12)
+    m, e = spec.m, 10
+    S = (np.ldexp(1.5, e) + rng.integers(0, 2**20, 999)
+         * np.ldexp(1.0, e - m)).astype(dt)
+    b = (rng.standard_normal(999) * np.ldexp(1.0, e - m + 16)).astype(dt)
+    b[::7] = _mixed((143,), dt, seed=13) * np.ldexp(1.0, -40)
+    for ref, got, what in zip(ref_eft.eft(jnp.asarray(S), jnp.asarray(b)),
+                              eft.eft(torch.from_numpy(S),
+                                      torch.from_numpy(b)), ("q", "r")):
+        _same(ref, got, f"eft {what}")
+    A = ref_eft.extractor(e, rspec.dtype)
+    q = np.array(ref_eft.eft_fixed(A, jnp.asarray(b))[0])
+    k_ref = ref_eft.scale_to_int(jnp.asarray(q), e, m)
+    k = eft.scale_to_int(torch.from_numpy(q), e, m)
+    _same(k_ref, k, "scale_to_int")
+    _same(ref_eft.int_to_scaled(k_ref, e, m, rspec.dtype),
+          eft.int_to_scaled(k, e, m, spec.dtype), "int_to_scaled")
+    np.testing.assert_array_equal(
+        eft.int_to_scaled(k, e, m, spec.dtype).numpy(), q)
+
+
 def _prescan_cases():
     """Equal-shape inputs (so the reference's compiled ops are reused):
     wide magnitudes, tiny normals, integers (dead bottom levels), two

@@ -270,3 +270,86 @@ def test_stream_store_on_the_card_equals_the_cpu(cuda, tmp_path):
                       device="cpu")
     assert flat.fingerprints()["stream/results"] == \
         fp.fingerprint_results(res)
+
+
+def _smollm(n_layers=None):
+    import dataclasses
+
+    from repro_torch import configs
+    cfg = configs.get_config("smollm-135m")
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+@pytest.mark.cuda
+def test_microbatch_gradient_twice_on_the_card_is_byte_identical(cuda):
+    """One quantum's forward and backward (smollm-135m, full width and
+    depth, bfloat16) twice: the same bytes in every gradient leaf."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train_step import TrainConfig, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = _smollm()
+    step = make_train_step(cfg, TrainConfig(grad_mode="repro"), make_mesh(),
+                           ShapeConfig("t", 256, 1, "train"), device=cuda)
+    params = lm.init_params(0, cfg, cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 257))
+                            .astype(np.int32)).to(cuda)
+    mb = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    g1, m1 = step.grad_fn(params, mb)
+    g2, m2 = step.grad_fn(params, mb)
+    assert torch.isfinite(m1["loss"])
+    assert m1["loss"].item() == m2["loss"].item()
+    for (path, a), b in zip(tree_mod.paths(g1), tree_mod.leaves(g2)):
+        assert a.dtype == torch.bfloat16 and a.device.type == "cuda"
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), path
+
+
+@pytest.mark.cuda
+def test_full_width_global_norm_runs_rsum_with_the_cpu_bits(cuda):
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import grad
+
+    spec = ReproSpec()
+    grads = tree_mod.tree_map(lambda p: (p.float() * 3.0 - 1e-3).to(
+        torch.bfloat16), lm.init_params(1, _smollm(), "cpu"))
+    before = rsum_ops.LAUNCHES
+    on_card = grad.repro_global_norm(
+        tree_mod.tree_map(lambda g: g.to(cuda), grads), spec)
+    assert rsum_ops.LAUNCHES - before == len(tree_mod.leaves(grads))
+    on_cpu = grad.repro_global_norm(grads, spec)
+    assert on_card.cpu().numpy().tobytes() == on_cpu.numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_repro_step_equals_repro_zero2_step_on_the_card(cuda):
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_batch
+    from repro_torch.launch.train_step import TrainConfig, make_train_step
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = _smollm(n_layers=2)
+    shape = ShapeConfig("t", 128, 4, "train")
+    batch = build_batch(DataConfig(seed=3, global_batch=4, seq_len=128,
+                                   vocab=cfg.vocab), cfg, 0, 4, 1,
+                        device=cuda)
+    out = {}
+    for mode in ("repro", "repro_zero2"):
+        step = make_train_step(cfg, TrainConfig(grad_mode=mode), make_mesh(),
+                               shape, device=cuda)
+        params = lm.init_params(2, cfg, cuda)
+        out[mode] = step(params, step.init_opt(params), batch)
+    (pa, oa, ma), (pb, ob, mb) = out["repro"], out["repro_zero2"]
+    for k in ("loss", "xent", "grad_norm"):
+        assert ma[k].item() == mb[k].item(), k
+    for a, b in zip(tree_mod.leaves(pa), tree_mod.leaves(pb)):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    for a, b in zip(tree_mod.leaves(oa.master), tree_mod.leaves(ob.master)):
+        assert torch.equal(a, b)
