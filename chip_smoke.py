@@ -67,14 +67,38 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    rerun and a restart from an injected failure at step 2 through a
    checkpoint — losses, parameter and optimizer digests equal across the
    repro runs — and one ``repro_embed`` step; the same width at 2 layers
-   (seq 256, 2 steps) at 1 rank and at 2 and 4 ranks over gloo with card
-   tensors, digests equal; the global norm of one quantum's full-width
-   gradient through the rsum kernel once per leaf, with the CPU's bits;
+   (seq 256, 2 steps) at 1 rank and at 2 ranks over gloo with card
+   tensors, digests equal (4 ranks cut to keep the whole script near half
+   its time limit; the CPU tests hold widths 1, 2 and 4); the global norm
+   of one quantum's full-width gradient through the rsum kernel once per
+   leaf, with the CPU's bits;
    the embedding gradient's GROUPBY (G = 49152, 576 columns) under
    ``scatter``, the planner's pick and the segment kernel, one table; both
    kernels against their plain versions at these shapes.  Prints ms per
    step of each mode (host clock, synchronized), the
    ``repro_zero2``/``baseline`` ratio, launches per step and peak memory.
+11. serve: ``repro_torch.launch.serve`` at full width and depth on
+   granite-moe-3b-a800m (32 layers, 40 experts top-8), hymba-1.5b and
+   xlstm-350m, random weights drawn on the card from the seed, batch 8,
+   prompts of 512 tokens (1,024 for hymba, whose decode then wraps its
+   1,024-slot window), 32 greedy steps: a second generate gives the same
+   tokens and logits of the same bytes; in float32 compute, the last
+   decode step's logits equal a prefill of the prompt and the generated
+   tokens within 2% of the largest logit (granite at capacity factor E/K,
+   where no prefill group drops a token, as no decode step does; the
+   bfloat16 gap is printed: granite's routing flips on bfloat16
+   roundings); ``serve_tokens_total``
+   grows by batch x steps.  Prints TTFT (cold and warm), decode tokens/s,
+   peak memory, and one decode step's kernel launches and device idle
+   share (``torch.profiler``).
+12. train_families: the same three at full width cut to 2 units (granite
+   and hymba 2 layers, xlstm 4 blocks), seq 256 (xlstm 128), global batch
+   4 in quanta of one sequence, 2 steps, in a spawned NCCL rank:
+   ``baseline``, ``repro_zero2``, ``repro`` and a rerun, with ``repro`` =
+   ``repro_zero2`` = rerun in losses, parameter and optimizer digests,
+   granite's ``repro`` at 2 gloo ranks = 1 rank (the MoE's group-local
+   dispatch), and the rsum kernel once per gradient leaf per step (the
+   global norm).  Prints ms per step and peak memory of each mode.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  Without a CUDA device, or without the
@@ -1126,12 +1150,12 @@ def train_rank(rank: int, world: int, store: str, out: str, backend: str,
         backend, init_method=f"file://{store}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=240),
         device_id=dev if backend == "nccl" else None)
-    cfg = configs.get_config(plan["arch"])
-    if plan["reduced"]:
-        cfg = cfg.reduced()
     recs = {}
     try:
         for job in plan["jobs"]:
+            cfg = configs.get_config(job.get("arch", plan["arch"]))
+            if plan["reduced"]:
+                cfg = cfg.reduced()
             jcfg = cfg if job.get("n_layers") is None else \
                 dataclasses.replace(cfg, n_layers=job["n_layers"])
             shape = ShapeConfig("train", job["seq"], job["batch"], "train")
@@ -1166,6 +1190,9 @@ def train_rank(rank: int, world: int, store: str, out: str, backend: str,
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
                 if dev.type == "cuda" else None}
         if plan["checks"] and rank == 0:
+            cfg = configs.get_config(plan["arch"])
+            if plan["reduced"]:
+                cfg = cfg.reduced()
             recs["checks"] = train_checks(torch, cfg, dev, plan["seed"],
                                           plan["jobs"][0]["seq"])
     finally:
@@ -1187,7 +1214,7 @@ def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
     width.  One rank over NCCL (gloo when rehearsing on the CPU) at full
     depth: ``baseline``, ``repro_zero2``, ``repro``, a rerun, a restart
     from an injected failure at step 2, and one ``repro_embed`` step; then
-    2 layers at 1, 2 and 4 ranks (gloo with card tensors).  Returns the
+    2 layers at 1 and 2 ranks (gloo with card tensors).  Returns the
     numbers the kernels line carries."""
     t_phase = time.perf_counter()
     full = dict(seq=seq, batch=8, steps=steps)
@@ -1238,7 +1265,7 @@ def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
 
     t_multi = time.perf_counter()
     multi = {}
-    for world in (2, 4):
+    for world in (2,):
         recs = spawn_ranks(train_rank, world, (
             "gloo", {**plan, "jobs": [small], "checks": False}),
             max(10.0, 300.0 - (time.perf_counter() - t_multi)))
@@ -1250,7 +1277,7 @@ def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
         multi[str(world)] = {"ms_per_step": _step_ms(recs[0]["depth2"]),
                              "seconds": recs[0]["depth2"]["seconds"]}
     multi_s = time.perf_counter() - t_multi
-    check(multi_s < 300.0, f"train: 2 and 4 gloo ranks took {multi_s} s")
+    check(multi_s < 300.0, f"train: 2 gloo ranks took {multi_s} s")
 
     modes = {label: {"ms_per_step": _step_ms(one[label]),
                      "step_s": one[label]["step_s"],
@@ -1287,6 +1314,256 @@ def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
                         if k.startswith("profile_")},
            "seconds": time.perf_counter() - t_phase}
     emit(phase="train", card=name, power_limit=limit, **rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases 11-12: the MoE, hybrid and xLSTM families served and trained
+
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "hymba-1.5b", "xlstm-350m")
+# prompt lengths: hymba's decode wraps its 1,024-slot sliding window
+SERVE_PROMPT = {"granite-moe-3b-a800m": 512, "hymba-1.5b": 1024,
+                "xlstm-350m": 512}
+SERVE_BATCH, SERVE_GEN = 8, 32
+# teacher forcing: the last decode step's logits against a prefill of the
+# prompt and the generated tokens, max |difference| over max |logit|
+TEACHER_RTOL = 2e-2
+# phase 12's cuts: layers (granite and hymba 2, xlstm 2 units of 2 blocks)
+# and sequence length
+TRAIN_FAMILY_LAYERS = {"granite-moe-3b-a800m": 2, "hymba-1.5b": 2,
+                       "xlstm-350m": 4}
+TRAIN_FAMILY_SEQ = {"granite-moe-3b-a800m": 256, "hymba-1.5b": 256,
+                    "xlstm-350m": 128}
+
+
+def serve_model(torch, np, dev, arch: str, seed: int, reduced: bool = False,
+                prompt_len: int = 0, gen_steps: int = SERVE_GEN) -> dict:
+    """One model of phase 11 through ``repro_torch.launch.serve``: random
+    weights drawn on the card from ``seed``, prompts from ``seed``; two
+    generates (same tokens, logits with the same bytes), the token counter,
+    teacher forcing, and one decode step's launches and device idle
+    share."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.obs import metrics
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = configs.get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    PL, B = prompt_len or SERVE_PROMPT[arch], SERVE_BATCH
+    max_seq = PL + gen_steps
+    sync()
+    # card memory is counted above what the process held before the model
+    # (the tensors of earlier phases)
+    base = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg, dev)
+    sync()
+    rec = {"arch": arch, "params": lm.param_count(params),
+           "init_s": time.perf_counter() - t0, "batch": B,
+           "prompt_len": PL, "gen_steps": gen_steps}
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, PL)).astype(np.int32)).to(dev)
+    tokens_total = metrics.counter("serve_tokens_total")
+    if on_card:
+        rec["weights_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+    before = tokens_total.value
+    toks, st1, logits = serve.generate_with_stats(
+        params, cfg, prompts, max_seq, gen_steps, return_logits=True)
+    if on_card:
+        rec["peak_mem_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(tokens_total.value - before == B * gen_steps,
+          f"serve {arch}: serve_tokens_total grew by "
+          f"{tokens_total.value - before}, not {B * gen_steps}")
+    check(toks.shape == (B, gen_steps) and bool(torch.isfinite(logits).all())
+          and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab,
+          f"serve {arch}: tokens or logits out of range")
+    toks2, st2, logits2 = serve.generate_with_stats(
+        params, cfg, prompts, max_seq, gen_steps, return_logits=True)
+    check(torch.equal(toks, toks2) and logits.cpu().numpy().tobytes()
+          == logits2.cpu().numpy().tobytes(),
+          f"serve {arch}: a second generate differs")
+    rec.update(ttft_cold_ms=st1["ttft_s"] * 1e3,
+               ttft_ms=st2["ttft_s"] * 1e3,
+               decode_tok_per_s=st2["decode_tok_per_s"],
+               decode_tok_per_s_cold=st1["decode_tok_per_s"],
+               decode_ms_per_step=st2["decode_s"] * 1e3 / (gen_steps - 1),
+               tokens=toks[0, :8].tolist(), rerun_equal=True)
+    del logits2
+
+    # teacher forcing: the last decode step's logits against a prefill of
+    # the prompt and the generated tokens.  As served (bfloat16, the
+    # config's capacity), reported: granite's top-8-of-40 routing flips
+    # where a bfloat16 rounding moves a router logit across the 8th/9th
+    # boundary (an expert flipped at one layer moves everything above it),
+    # and a prefill's group of the whole sequence drops what overflows its
+    # capacity while a decode step's group of one token never drops.
+    # Checked in float32 compute (the same weights), the MoE at capacity
+    # factor E / K
+    def teacher(cfg_tf, toks_tf, logits_tf):
+        full = torch.cat([prompts, toks_tf[:, :-1]], dim=1)
+        with torch.inference_mode():
+            lg, caches = lm.prefill_step(params, {"tokens": full}, cfg_tf,
+                                         max_seq)
+        err = float((lg[:, -1] - logits_tf[:, -1]).abs().max())
+        scale = float(logits_tf[:, -1].abs().max())
+        return {"max_abs_err": err, "max_abs_logit": scale,
+                "rel_err": err / scale, "argmax_equal": bool(torch.equal(
+                    lg[:, -1].argmax(-1), logits_tf[:, -1].argmax(-1)))}, \
+            caches
+
+    rec["teacher_forcing_served"], caches = teacher(cfg, toks, logits)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.moe is not None:
+        f32 = dataclasses.replace(f32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    toks32, _, logits32 = serve.generate_with_stats(
+        params, f32, prompts, max_seq, gen_steps, return_logits=True)
+    tf, _ = teacher(f32, toks32, logits32)
+    rec["teacher_forcing"] = {**tf, "rtol": TEACHER_RTOL,
+                              "compute_dtype": "float32",
+                              "capacity_factor": f32.moe.capacity_factor
+                              if f32.moe is not None else None}
+    check(tf["max_abs_err"] <= TEACHER_RTOL * tf["max_abs_logit"],
+          f"serve {arch}: the last decode step's logits differ from the "
+          f"prefill's by {tf['max_abs_err']} (logits up to "
+          f"{tf['max_abs_logit']})")
+    del logits, logits32
+
+    # one decode step (after the prompt and the generated tokens)
+    step_batch = {"tokens": toks[:, -1:], "positions": torch.full(
+        (B, 1), max_seq - 1, dtype=torch.int32, device=dev)}
+
+    def decode_once():
+        with torch.inference_mode():
+            lm.decode_step(params, caches, step_batch, cfg)
+
+    if on_card:
+        wall = host_ms(torch, decode_once, reps=5)
+        prof = device_profile(torch, decode_once, wall)
+        rec["decode_step"] = {
+            "wall_ms": wall, "device_busy_ms": prof["device_busy_ms"],
+            "kernel_launches": prof["kernel_launches"],
+            "device_idle_share": prof["device_idle_share"],
+            "top_kernel_device_ms": prof["top_kernel_device_ms"]}
+    else:
+        decode_once()
+    del params, caches
+    if on_card:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def serve_phase(name: str, limit: str, seed: int, device: str = "cuda",
+                reduced: bool = False, prompt_len: int = 0,
+                gen_steps: int = SERVE_GEN) -> dict:
+    """Phase 11: granite-moe-3b-a800m, hymba-1.5b and xlstm-350m at full
+    width and depth, served by ``repro_torch.launch.serve`` (batch 8,
+    32 greedy steps; prompts of 512 tokens, 1,024 for hymba)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rsum import ops as R
+    from repro_torch.kernels.segment_rsum import ops as S
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    R.LAUNCHES = S.LAUNCHES = 0
+    models = {arch: serve_model(torch, np, dev, arch, seed, reduced,
+                                prompt_len, gen_steps)
+              for arch in FAMILY_ARCHS}
+    rec = {"models": models,
+           "kernel_launches": {"rsum": R.LAUNCHES, "segment_rsum":
+                               S.LAUNCHES},
+           "seconds": time.perf_counter() - t0}
+    emit(phase="serve", card=name, power_limit=limit, **rec)
+    return rec
+
+
+def train_families_phase(name: str, limit: str, seed: int,
+                         device: str = "cuda", reduced: bool = False,
+                         seq: int = 0) -> dict:
+    """Phase 12: the same three configurations at full width, cut to 2
+    units, trained through ``repro_torch.launch.train`` in one NCCL rank
+    (gloo when rehearsing on the CPU): ``baseline``, ``repro_zero2``,
+    ``repro`` and a rerun (global batch 4 in quanta of one sequence, 2
+    steps); granite also in ``repro`` at 2 gloo ranks.  ``repro`` =
+    ``repro_zero2`` = rerun = 2 ranks, and the rsum kernel launches once
+    per gradient leaf per step."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    jobs = []
+    for arch in FAMILY_ARCHS:
+        shape = dict(arch=arch, n_layers=TRAIN_FAMILY_LAYERS[arch],
+                     seq=seq or TRAIN_FAMILY_SEQ[arch], batch=4, steps=2)
+        jobs += [dict(label=f"{arch}/{mode}", mode=mode, **shape)
+                 for mode in ("baseline", "repro_zero2", "repro")]
+        jobs.append(dict(label=f"{arch}/rerun", mode="repro_zero2", **shape))
+    plan = {"arch": FAMILY_ARCHS[0], "reduced": reduced, "device": device,
+            "seed": seed, "jobs": jobs, "checks": False}
+    backend = "nccl" if device == "cuda" else "gloo"
+    one = spawn_ranks(train_rank, 1, (backend, plan), 600.0)[0]
+    granite = [j for j in jobs if j["label"] == f"{FAMILY_ARCHS[0]}/repro"]
+    t_two = time.perf_counter()
+    two = spawn_ranks(train_rank, 2, (
+        "gloo", {**plan, "jobs": granite}), 300.0)
+    two_s = time.perf_counter() - t_two
+    models = {}
+    for arch in FAMILY_ARCHS:
+        cfg = configs.get_config(arch).reduced()     # same tree, small
+        leaves = len(tree_mod.leaves(lm.init_params(0, cfg, "cpu")))
+        z2 = one[f"{arch}/repro_zero2"]
+        for label in ("repro", "rerun"):
+            for key in RUN_KEYS:
+                check(one[f"{arch}/{label}"][key] == z2[key],
+                      f"train_families {arch}: {label}'s {key} != "
+                      "repro_zero2's")
+        for label in ("baseline", "repro_zero2", "repro", "rerun"):
+            check(all(math.isfinite(v) for v in
+                      one[f"{arch}/{label}"]["loss_values"]),
+                  f"train_families {arch}: {label} has a loss that is not "
+                  "finite")
+            rs = one[f"{arch}/{label}"]["rsum_launches"] / 2
+            check(device != "cuda" or label == "baseline" or rs == leaves,
+                  f"train_families {arch}: {label} launched rsum {rs} "
+                  f"times per step for {leaves} gradient leaves")
+        modes = {label: {
+            "ms_per_step": _step_ms(one[f"{arch}/{label}"]),
+            "step_s": one[f"{arch}/{label}"]["step_s"],
+            "peak_mem_gb": one[f"{arch}/{label}"]["peak_mem_gb"],
+            "rsum_launches_per_step":
+            one[f"{arch}/{label}"]["rsum_launches"] / 2}
+            for label in ("baseline", "repro_zero2", "repro")}
+        models[arch] = {
+            "layers": TRAIN_FAMILY_LAYERS[arch],
+            "seq": seq or TRAIN_FAMILY_SEQ[arch], "leaves": leaves,
+            "losses": z2["loss_values"], "params_digest": z2["params"],
+            "modes": modes, "repro_equals_repro_zero2": True,
+            "rerun_equal": True,
+            "repro_zero2_over_baseline": modes["repro_zero2"]["ms_per_step"]
+            / modes["baseline"]["ms_per_step"]}
+    for r, rec in enumerate(two):
+        for key in RUN_KEYS:
+            check(rec[f"{FAMILY_ARCHS[0]}/repro"][key]
+                  == one[f"{FAMILY_ARCHS[0]}/repro"][key],
+                  f"train_families: granite at 2 gloo ranks (rank {r}): "
+                  f"{key} != one rank's")
+    models[FAMILY_ARCHS[0]]["gloo2"] = {
+        "ranks_equal": True, "seconds": two_s,
+        "ms_per_step": _step_ms(two[0][f"{FAMILY_ARCHS[0]}/repro"])}
+    rec = {"models": models, "global_batch": 4, "mb_size": 1, "steps": 2,
+           "seconds": time.perf_counter() - t0}
+    emit(phase="train_families", card=name, power_limit=limit, **rec)
     return rec
 
 
@@ -1631,6 +1908,12 @@ def run(args) -> dict:
     trained = train_phase(name, limit, args.seed)
     tr_rsum, tr_embed = trained["rsum_at_largest_leaf"], trained["embed_grad"]
 
+    # -- phase 11: granite-moe, hymba and xlstm served at full width -------
+    served = serve_phase(name, limit, args.seed)
+
+    # -- phase 12: the same three trained at full width, 2 units ----------
+    families = train_families_phase(name, limit, args.seed)
+
     kernels = [
         {"name": "segment_rsum", "route": "cuda",
          "path": S.launch_shape(n, 4, X.shape[1], nlev, 132).path,
@@ -1648,6 +1931,7 @@ def run(args) -> dict:
                    **{k: tr_embed[k] for k in (
                        "planner", "max_abs_err", "ms", "plain_ms",
                        "library_ms", "bound_ms", "bound_by")}},
+         "serve_launches": served["kernel_launches"]["segment_rsum"],
          "ms": seg_ms, "call_ms": seg_call_ms, "plain_ms": seg_plain_ms,
          "bound_ms": seg_bound * 1e3,
          "bound_by": "bytes" if seg_bytes / HBM_BYTES_PER_S
@@ -1666,6 +1950,12 @@ def run(args) -> dict:
                    **{k: tr_rsum[k] for k in (
                        "n", "max_abs_err", "ms", "plain_ms", "library_ms",
                        "bound_ms", "bound_by")}},
+         "train_families": {
+             arch: {"leaves": m["leaves"],
+                    "launches_per_step": m["modes"]["repro_zero2"][
+                        "rsum_launches_per_step"]}
+             for arch, m in families["models"].items()},
+         "serve_launches": served["kernel_launches"]["rsum"],
          "ms": rsum_ms, "call_ms": rsum_call_ms, "plain_ms": rsum_plain_ms,
          "bound_ms": rsum_bound * 1e3,
          "bound_by": "bytes" if rsum_bytes / HBM_BYTES_PER_S

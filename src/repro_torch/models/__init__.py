@@ -1,2 +1,3 @@
-"""The LM stack of the dense families (dense, audio, vlm): configuration,
-shared layers, attention, the stacked-unit layer loop and the model."""
+"""The LM stack of every family (dense, moe, hybrid, xlstm, audio, vlm):
+configuration, shared layers, attention, MoE, SSM and xLSTM blocks, the
+chunked recurrent scan, the stacked-unit layer loop and the model."""

@@ -2,8 +2,10 @@
 
 Functional style, as in the JAX package: ``*_init`` builds parameter trees
 (plain dicts of tensors), the layers are pure functions of tensors.
-Initializers draw from an explicit ``torch.Generator`` on the CPU, so every
-process builds the same weights, and move them to ``device``.
+Initializers draw from an explicit ``torch.Generator`` (on the CPU, so every
+process builds the same weights; a generator on the card draws there, which
+is what a model of billions of parameters wants) and move them to
+``device``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ __all__ = ["dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
 # ---------------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=torch.float32).to(device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device).to(device)
 
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] =

@@ -40,8 +40,9 @@ def _generator(key) -> torch.Generator:
 
 
 def init_params(key, cfg: ModelConfig, device=None):
-    """Random weights from ``key`` (a seed or a CPU ``torch.Generator``):
-    the same tensors in every process, placed on ``device`` (the card
+    """Random weights from ``key`` (a seed or a ``torch.Generator``; a seed
+    or a CPU generator gives the same tensors in every process, a
+    generator on the card draws there), placed on ``device`` (the card
     unless the caller asks for the CPU).  The draws are not the JAX
     package's; carry its weights across with
     :func:`repro_torch.interop.lm_params_from_numpy`."""

@@ -2,8 +2,10 @@
 
 One *unit* is the structure repeated down the stack:
 
-* dense/audio/vlm      : 1 transformer layer (attention + FFN)
+* dense/moe/audio/vlm  : 1 transformer layer (attention + [MoE-]FFN)
 * gemma2 alternating   : 2 layers (sliding-window attn layer + full-attn layer)
+* hymba hybrid         : 1 layer with parallel attention + SSM heads
+* xlstm                : 2 blocks (mLSTM + sLSTM)
 
 Unit weights are stacked on a leading (n_units,) axis, as the JAX package
 holds them under its ``lax.scan``: one tensor per weight for the whole
@@ -11,8 +13,9 @@ stack, so a gradient tree has the reference's leaves (one lattice exponent
 per leaf in the reproducible accumulators).  :func:`run_stack` walks the
 units in a Python loop; training recomputes each unit in backward
 (``torch.utils.checkpoint``), the reference's ``jax.checkpoint`` remat.
-
-The MoE, hybrid (attention + SSM) and xLSTM units are not ported yet.
+A unit's decode-time state is a dict of NamedTuples of tensors under the
+reference's keys (``attn``/``local``/``global``: :class:`KVCache`;
+``ssm``: :class:`SSMState`; ``mlstm``/``slstm``: the xLSTM states).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import tree as tree_mod
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe, ssm, xlstm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["layers_per_unit", "n_units", "unit_init", "stack_init",
@@ -29,19 +32,6 @@ __all__ = ["layers_per_unit", "n_units", "unit_init", "stack_init",
            "REMAT_POLICIES"]
 
 REMAT_POLICIES = ("nothing", "dots", "none")
-
-
-def _unported(cfg: ModelConfig):
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family} family's units (MoE, SSM, xLSTM) are "
-        "not ported to repro_torch yet (ROADMAP queue 1, models/"
-        "{moe,ssm,xlstm,recurrence}.py)")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("moe", "hybrid", "xlstm") or cfg.moe is not None \
-            or cfg.ssm is not None:
-        _unported(cfg)
 
 
 def layers_per_unit(cfg: ModelConfig) -> int:
@@ -67,17 +57,35 @@ def _dense_layer_init(gen, cfg: ModelConfig, window: bool, device):
         "ln_attn": common.rmsnorm_init(cfg.d_model, cfg.pdtype, device),
         "attn": attention.attn_init(gen, cfg, window, device),
         "ln_ffn": common.rmsnorm_init(cfg.d_model, cfg.pdtype, device),
-        "mlp": common.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype,
-                               device),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = common.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype,
+                                   device)
     if cfg.post_block_norm:
         p["post_attn"] = common.rmsnorm_init(cfg.d_model, cfg.pdtype, device)
         p["post_ffn"] = common.rmsnorm_init(cfg.d_model, cfg.pdtype, device)
     return p
 
 
+def _hymba_layer_init(gen, cfg: ModelConfig, device):
+    return {
+        "ln_mix": common.rmsnorm_init(cfg.d_model, cfg.pdtype, device),
+        "attn": attention.attn_init(gen, cfg, True, device),
+        "ssm": ssm.ssm_init(gen, cfg, device),
+        "ln_ffn": common.rmsnorm_init(cfg.d_model, cfg.pdtype, device),
+        "mlp": common.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.pdtype,
+                               device),
+    }
+
+
 def unit_init(gen: torch.Generator, cfg: ModelConfig, device=None):
-    _check_family(cfg)
+    if cfg.family == "xlstm":
+        return {"mlstm": xlstm.mlstm_init(gen, cfg, device),
+                "slstm": xlstm.slstm_init(gen, cfg, device)}
+    if cfg.family == "hybrid":
+        return _hymba_layer_init(gen, cfg, device)
     if cfg.attn_kind == "alternating":
         return {"local": _dense_layer_init(gen, cfg, True, device),
                 "global": _dense_layer_init(gen, cfg, False, device)}
@@ -107,7 +115,13 @@ def _units(stacked, u: int) -> list:
 def unit_cache_init(batch: int, max_seq: int, cfg: ModelConfig,
                     device=None):
     """Decode-time state for one unit."""
-    _check_family(cfg)
+    if cfg.family == "xlstm":
+        return {"mlstm": xlstm.mlstm_state_init(batch, cfg, device),
+                "slstm": xlstm.slstm_state_init(batch, cfg, device)}
+    if cfg.family == "hybrid":
+        return {"attn": attention.cache_init(
+                    batch, min(cfg.window, max_seq), cfg, device=device),
+                "ssm": ssm.ssm_state_init(batch, cfg, device)}
     if cfg.attn_kind == "alternating":
         return {"local": attention.cache_init(
                     batch, min(cfg.window, max_seq), cfg, device=device),
@@ -117,25 +131,26 @@ def unit_cache_init(batch: int, max_seq: int, cfg: ModelConfig,
     return {"attn": attention.cache_init(batch, slots, cfg, device=device)}
 
 
+def _state_map(fn, state):
+    """``fn`` over the tensors of a NamedTuple state, same type back."""
+    return type(state)(*(fn(t) for t in state))
+
+
 def stack_cache_init(batch: int, max_seq: int, cfg: ModelConfig,
                      device=None):
     unit = unit_cache_init(batch, max_seq, cfg, device)
     u = n_units(cfg)
-
-    def rep(c):
-        return attention.KVCache(*(t.expand(u, *t.shape).clone()
-                                   for t in c))
-    return {k: rep(c) for k, c in unit.items()}
+    return {k: _state_map(lambda t: t.expand(u, *t.shape).clone(), c)
+            for k, c in unit.items()}
 
 
 def _cache_at(caches, i: int):
-    return {k: attention.KVCache(*(t[i] for t in c))
-            for k, c in caches.items()}
+    return {k: _state_map(lambda t: t[i], c) for k, c in caches.items()}
 
 
 def _stack_caches(per_unit):
-    return {k: attention.KVCache(*(torch.stack(ts) for ts in zip(
-        *(c[k] for c in per_unit)))) for k in per_unit[0]}
+    return {k: type(c)(*(torch.stack(ts) for ts in zip(
+        *(u[k] for u in per_unit)))) for k, c in per_unit[0].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -151,28 +166,58 @@ def _dense_layer_apply(x, p, cfg: ModelConfig, positions, cache,
         out = common.rmsnorm(out, p["post_attn"], cfg.norm_eps)
     x = x + out
     h = common.rmsnorm(x, p["ln_ffn"], cfg.norm_eps)
-    out = common.mlp(h, p["mlp"], cfg.act, cfg.cdtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.moe is not None:
+        out, aux_d = moe.moe_block(h, p["moe"], cfg,
+                                   group=min(cfg.moe_group, h.shape[1]))
+        # the reference's sum(aux_d.values()), in its key order
+        aux = aux_d["moe_load_balance"] + aux_d["moe_z_loss"]
+    else:
+        out = common.mlp(h, p["mlp"], cfg.act, cfg.cdtype)
     if cfg.post_block_norm:
         out = common.rmsnorm(out, p["post_ffn"], cfg.norm_eps)
-    return x + out, cache
+    return x + out, cache, aux
+
+
+def _hymba_layer_apply(x, p, cfg: ModelConfig, positions, cache):
+    h = common.rmsnorm(x, p["ln_mix"], cfg.norm_eps)
+    attn_cache = cache["attn"] if cache is not None else None
+    ssm_state = cache["ssm"] if cache is not None else None
+    a_out, attn_cache = attention.attention_block(
+        h, p["attn"], cfg, positions, window=cfg.window, cache=attn_cache)
+    s_out, ssm_state = ssm.ssm_block(h, p["ssm"], cfg, state=ssm_state)
+    x = x + 0.5 * (a_out + s_out)                   # fused parallel heads
+    h = common.rmsnorm(x, p["ln_ffn"], cfg.norm_eps)
+    x = x + common.mlp(h, p["mlp"], cfg.act, cfg.cdtype)
+    cache = (None if cache is None
+             else {"attn": attn_cache, "ssm": ssm_state})
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def unit_apply(p, x, positions, cache, cfg: ModelConfig):
     """Returns (x, new_cache, aux_loss_scalar)."""
-    _check_family(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "xlstm":
+        m_st = cache["mlstm"] if cache is not None else None
+        s_st = cache["slstm"] if cache is not None else None
+        x, m_st = xlstm.mlstm_block(x, p["mlstm"], cfg, state=m_st)
+        x, s_st = xlstm.slstm_block(x, p["slstm"], cfg, state=s_st)
+        cache = None if cache is None else {"mlstm": m_st, "slstm": s_st}
+        return x, cache, torch.zeros((), dtype=torch.float32,
+                                     device=x.device)
+    if cfg.family == "hybrid":
+        return _hymba_layer_apply(x, p, cfg, positions, cache)
     if cfg.attn_kind == "alternating":
         lc = cache["local"] if cache is not None else None
         gc = cache["global"] if cache is not None else None
-        x, lc = _dense_layer_apply(x, p["local"], cfg, positions, lc,
-                                   window=cfg.window)
-        x, gc = _dense_layer_apply(x, p["global"], cfg, positions, gc,
-                                   window=0)
-        return x, (None if cache is None else {"local": lc, "global": gc}), \
-            aux
+        x, lc, a1 = _dense_layer_apply(x, p["local"], cfg, positions, lc,
+                                       window=cfg.window)
+        x, gc, a2 = _dense_layer_apply(x, p["global"], cfg, positions, gc,
+                                       window=0)
+        cache = None if cache is None else {"local": lc, "global": gc}
+        return x, cache, a1 + a2
     window = cfg.window if cfg.attn_kind == "sliding" else 0
     ac = cache["attn"] if cache is not None else None
-    x, ac = _dense_layer_apply(x, p, cfg, positions, ac, window=window)
+    x, ac, aux = _dense_layer_apply(x, p, cfg, positions, ac, window=window)
     return x, (None if cache is None else {"attn": ac}), aux
 
 

@@ -16,20 +16,27 @@ of comparison:
   variant that snapshots after three batches, restores into a fresh
   store and streams the rest; every variant must fingerprint like a
   one-shot ``groupby_agg`` over the rows.
+* **Train family** — a short ``repro`` training of reduced smollm-135m
+  (:func:`repro_torch.launch.train.train_loop`, reproducible embedding
+  gradients) whose run fingerprints (loss trajectory, parameters,
+  optimizer state) must not move with a fresh rerun, the embedding
+  gradient's GROUPBY chunk, or a data-parallel width of 2 (spawned gloo
+  ranks joined by a ``file://`` store in the output directory).  On the
+  CPU every training process runs one torch thread, so the products'
+  bits do not depend on the thread count.
 
 Every worker runs on ``--device`` (default: the card).  The parent diffs
 the files with :func:`repro_torch.obs.fingerprint.diff_fingerprints` and
 exits non-zero on any mismatch; workers also write their trace (JSONL)
-and metrics (JSON) into the output directory.  The JAX package's
-``train`` family waits for the port of the LM stack; the comparison of
-these digests with the JAX package's lives in the CPU tests, since the
-port runs without JAX.
+and metrics (JSON) into the output directory.  The comparison of the
+GROUPBY and stream digests with the JAX package's lives in the CPU tests,
+since the port runs without JAX.
 
 CLI::
 
   PYTHONPATH=src python -m repro_torch.obs.audit --out audit_out [--quick]
-      [--device cpu] [--skip-groupby] [--skip-stream] [--serial]
-      [--timeout SECONDS]
+      [--device cpu] [--skip-groupby] [--skip-stream] [--skip-train]
+      [--serial] [--timeout SECONDS]
 """
 from __future__ import annotations
 
@@ -69,6 +76,14 @@ STREAM_VARIANTS = [
     ("batches64perm", {"batches": 64, "permute_batches": True}),
     ("restart", {"batches": 7, "permute_batches": True,
                  "restart_after": 3}),
+]
+
+TRAIN_STEPS = 2
+TRAIN_VARIANTS = [
+    ("base", {"dp": 1, "embed_chunk": 4096}),
+    ("rerun", {"dp": 1, "embed_chunk": 4096}),   # fresh process
+    ("dp2", {"dp": 2, "embed_chunk": 4096}),     # data-parallel width
+    ("chunk64", {"dp": 1, "embed_chunk": 64}),   # embed-grad chunk
 ]
 
 
@@ -176,6 +191,62 @@ def _worker_stream(args) -> int:
         "restart_after": args.restart_after})
 
 
+def train_run(device: str, steps: int, embed_chunk: int, path: str) -> None:
+    """The train family's run in this process (its process group, if any,
+    is the data-parallel axis): rank 0 writes the fingerprints to
+    ``path``."""
+    import torch
+
+    from repro_torch import configs as registry
+    from repro_torch.launch.train import train_loop
+    from repro_torch.launch.train_step import TrainConfig
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim.adamw import AdamWConfig
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    cfg = registry.get_config("smollm-135m").reduced()
+    shape = ShapeConfig("audit", seq_len=32, global_batch=4, kind="train")
+    tc = TrainConfig(grad_mode="repro", mb_size=1, repro_embed=True,
+                     embed_chunk=embed_chunk,
+                     adamw=AdamWConfig(lr=1e-3, total_steps=steps,
+                                       warmup_steps=1))
+    train_loop(cfg, shape, tc, steps=steps, seed=0, log_every=10 ** 9,
+               fingerprint_path=path, device=device)
+
+
+def _train_rank(rank: int, world: int, store: str, device: str, steps: int,
+                embed_chunk: int, path: str) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        train_run(device, steps, embed_chunk, path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _worker_train(args) -> int:
+    path = os.path.join(args.out, f"fp_train_{args.tag}.json")
+    if args.dp == 1:
+        train_run(args.device, args.steps, args.embed_chunk, path)
+        return 0
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.obs import audit as this      # picklable by name
+    with tempfile.TemporaryDirectory(dir=args.out) as tmp:
+        mp.spawn(this._train_rank, nprocs=args.dp, join=True, args=(
+            args.dp, os.path.join(tmp, "store"), args.device, args.steps,
+            args.embed_chunk, path))
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # parent: spawn, collect, diff
 
@@ -281,7 +352,8 @@ def _audit(args) -> int:
     os.makedirs(args.out, exist_ok=True)
     n = 4001 if args.quick else 20001
     t0 = time.time()
-    summary = {"device": args.device, "groupby": None, "stream": None}
+    summary = {"device": args.device, "groupby": None, "stream": None,
+               "train": None}
     failures = []
 
     def groupby_args(ov):
@@ -307,6 +379,15 @@ def _audit(args) -> int:
     if not args.skip_stream:
         _family("stream", STREAM_VARIANTS, stream_args, args, summary,
                 failures)
+    if not args.skip_train:
+        def train_args(ov):
+            return ["--steps", str(TRAIN_STEPS), "--dp", str(ov["dp"]),
+                    "--embed-chunk", str(ov["embed_chunk"])]
+
+        # each train worker builds a model: one at a time bounds memory
+        _family("train", TRAIN_VARIANTS, train_args,
+                argparse.Namespace(**{**vars(args), "serial": True}),
+                summary, failures)
 
     summary["elapsed_s"] = round(time.time() - t0, 1)
     summary["status"] = "fail" if failures else "pass"
@@ -315,7 +396,8 @@ def _audit(args) -> int:
         json.dump(summary, fh, indent=1)
     print(f"determinism audit: {summary['status'].upper()} "
           f"in {summary['elapsed_s']}s on {args.device} "
-          f"(groupby={summary['groupby']}, stream={summary['stream']})")
+          f"(groupby={summary['groupby']}, stream={summary['stream']}, "
+          f"train={summary['train']})")
     for f in failures:
         print(f"  {f}")
     return 1 if failures else 0
@@ -330,12 +412,13 @@ def main(argv=None) -> int:
                     help="where every worker runs (default: the card)")
     ap.add_argument("--skip-groupby", action="store_true")
     ap.add_argument("--skip-stream", action="store_true")
+    ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--serial", action="store_true",
                     help="run the workers of a family one at a time")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds a family's workers may take in all")
     # worker mode (internal)
-    ap.add_argument("--worker", choices=["groupby", "stream"])
+    ap.add_argument("--worker", choices=["groupby", "stream", "train"])
     ap.add_argument("--tag", default="base")
     ap.add_argument("--n", type=int, default=20001)
     ap.add_argument("--method", default="auto")
@@ -347,11 +430,17 @@ def main(argv=None) -> int:
     ap.add_argument("--restart-after", type=int, default=0,
                     help="stream worker: snapshot+restore after this many "
                          "ingested batches")
+    ap.add_argument("--steps", type=int, default=TRAIN_STEPS)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="train worker: data-parallel width (gloo ranks)")
+    ap.add_argument("--embed-chunk", type=int, default=4096)
     args = ap.parse_args(argv)
     if args.worker == "groupby":
         return _worker_groupby(args)
     if args.worker == "stream":
         return _worker_stream(args)
+    if args.worker == "train":
+        return _worker_train(args)
     return _audit(args)
 
 

@@ -21,13 +21,15 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 TIMEOUT_S = 120
 
 
-def run_ranks(script: str, world: int, out_dir: Path) -> list:
-    """Run ``world`` ranks of ``script`` and return each rank's JSON."""
+def run_ranks(script: str, world: int, out_dir: Path,
+              extra: tuple = ()) -> list:
+    """Run ``world`` ranks of ``script`` and return each rank's JSON;
+    ``extra`` arguments follow ``<world> <out_dir>`` on its command line."""
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [str(SRC), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.Popen(
-        [sys.executable, script, str(world), str(out_dir)], env=env,
+        [sys.executable, script, str(world), str(out_dir), *extra], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         start_new_session=True)
     try:

@@ -353,3 +353,85 @@ def test_repro_step_equals_repro_zero2_step_on_the_card(cuda):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
     for a, b in zip(tree_mod.leaves(oa.master), tree_mod.leaves(ob.master)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_routing_under_bf16_ties_equals_the_cpu(cuda):
+    """granite's router at full width in bfloat16: its logits tie often,
+    and the card picks the CPU's experts (lower index first on ties); a
+    whole MoE block on the card twice gives the same bytes."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = configs.get_config("granite-moe-3b-a800m")
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 512, cfg.d_model), generator=g).to(torch.bfloat16)
+    router = (torch.randn((cfg.d_model, E), generator=g)
+              * cfg.d_model ** -0.5).to(torch.bfloat16)
+    probs = torch.softmax((x.to(cuda) @ router.to(cuda)).float(), dim=-1)
+    v_card, i_card = moe.top_k(probs, K)
+    v_cpu, i_cpu = moe.top_k(probs.cpu(), K)
+    assert torch.equal(i_card.cpu(), i_cpu)
+    assert torch.equal(v_card.cpu(), v_cpu)
+    top = torch.sort(probs, dim=-1, descending=True).values[..., :K + 1]
+    assert (top[..., 1:] == top[..., :-1]).any()         # ties happened
+    small = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, d_ff_expert=64))
+    p = moe.moe_init(torch.Generator().manual_seed(1), small, device=cuda)
+    outs = [moe.moe_block(x.to(cuda), p, small, group=512)[0]
+            for _ in range(2)]
+    assert torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "hymba-1.5b",
+                                  "xlstm-350m"])
+def test_generate_twice_on_the_card_gives_the_same_bytes(cuda, arch):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=2 * (1 + (arch == "xlstm-350m")))
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                             cuda)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)).to(cuda)
+    runs = [serve.generate_with_stats(params, cfg, prompts, max_seq=72,
+                                      gen_steps=8, return_logits=True)
+            for _ in range(2)]
+    (t1, _, l1), (t2, _, l2) = runs
+    assert t1.device.type == "cuda" and torch.equal(t1, t2)
+    assert l1.dtype == torch.float32 and torch.equal(l1, l2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_recurrent_quantum_gradient_twice_is_byte_identical(cuda, arch):
+    """One quantum of reduced hymba / xlstm over 72 steps (a checkpointed
+    time chunk and a tail), twice: the same gradient bytes."""
+    from repro_torch import configs
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train_step import TrainConfig, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = configs.get_config(arch).reduced()
+    step = make_train_step(cfg, TrainConfig(grad_mode="repro"), make_mesh(),
+                           ShapeConfig("t", 72, 1, "train"), device=cuda)
+    params = lm.init_params(0, cfg, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, 73)).astype(np.int32)).to(cuda)
+    mb = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    g1, m1 = step.grad_fn(params, mb)
+    g2, m2 = step.grad_fn(params, mb)
+    assert torch.isfinite(m1["loss"]) and m1["loss"].item() == \
+        m2["loss"].item()
+    for (path, a), b in zip(tree_mod.paths(g1), tree_mod.leaves(g2)):
+        assert torch.equal(a, b), path

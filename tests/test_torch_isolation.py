@@ -25,7 +25,10 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 subs = sorted({n.split(".")[1] for n in names if "." in n})
-print(len(names), ",".join(subs), ",".join(bad))
+new = [n for n in ("repro_torch.models.recurrence", "repro_torch.models.ssm",
+                   "repro_torch.models.xlstm", "repro_torch.models.moe",
+                   "repro_torch.launch.serve") if n in names]
+print(len(names), ",".join(subs), len(new), ",".join(bad))
 """
 
 
@@ -34,7 +37,8 @@ def test_port_imports_no_jax_and_no_reference_module():
     out = subprocess.run([sys.executable, "-c", _PROBE, str(SRC)], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 70                 # every module was imported
+    assert int(out[0]) >= 75                 # every module was imported
     assert {"optim", "data", "models", "configs", "launch", "core", "ops",
             "kernels", "stream", "runtime", "obs"} <= set(out[1].split(","))
-    assert out[2:] == [], f"the port imported {out[2:]}"
+    assert out[2] == "5"          # the MoE, SSM, xLSTM, scan and serving
+    assert out[3:] == [], f"the port imported {out[3:]}"

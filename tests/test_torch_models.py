@@ -1,6 +1,7 @@
-"""``repro_torch.models`` against the JAX package on the dense, audio and vlm
-configs, ``.reduced()`` and in float32, from the same weights
-(``interop.lm_params_from_numpy`` of the reference's ``init_params``).
+"""``repro_torch.models`` against the JAX package on all ten configs
+(dense, moe, hybrid, xlstm, audio, vlm), ``.reduced()`` and in float32,
+from the same weights (``interop.lm_params_from_numpy`` of the reference's
+``init_params``).
 
 Tolerances: the two packages sum matrix products, softmaxes and norms in
 different orders, so forwards and losses agree to a few float32 ulps
@@ -9,6 +10,8 @@ are O(1e-2); the largest differences seen are about 7e-7).  Port-only
 properties are exact: remat policies and the embedding-gradient chunk
 change no bit.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -24,12 +27,11 @@ from repro_torch import tree as tree_mod  # noqa: E402
 from repro_torch.core.types import ReproSpec  # noqa: E402
 from repro_torch.interop import (lm_params_from_numpy,  # noqa: E402
                                  lm_params_to_numpy)
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
 
 ARCHS = ["llama3.2-3b", "stablelm-3b", "smollm-135m", "gemma2-27b",
-         "musicgen-medium", "qwen2-vl-72b"]
-UNPORTED = ["granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b", "hymba-1.5b",
-            "xlstm-350m"]
+         "musicgen-medium", "qwen2-vl-72b", "granite-moe-3b-a800m",
+         "phi3.5-moe-42b-a6.6b", "hymba-1.5b", "xlstm-350m"]
 
 
 def _cfgs(arch):
@@ -141,22 +143,43 @@ def test_prefill_and_decode_close_to_reference(arch):
     np.testing.assert_allclose(logits.numpy(), np.asarray(logits_ref),
                                rtol=1e-4, atol=1e-4)
     step = _decode_step(cfg, B, S, np.asarray(logits_ref), seed=3)
-    dec_ref, _ = jax.jit(lambda p, c, b: ref_lm.decode_step(p, c, b, rcfg))(
-        rp, caches_ref, _jnp(step))
+    dec_ref, caches_ref = jax.jit(
+        lambda p, c, b: ref_lm.decode_step(p, c, b, rcfg))(
+            rp, caches_ref, _jnp(step))
     with torch.no_grad():
         dec, caches = lm.decode_step(pp, caches, _torch(step), cfg)
     assert torch.isfinite(dec).all()
     np.testing.assert_allclose(dec.numpy(), np.asarray(dec_ref), rtol=1e-4,
                                atol=1e-4)
-    kv = next(iter(caches.values()))
-    assert kv.pos.dtype == torch.int32 and int(kv.pos.max()) == S
+    # every cache entry (KV ring buffers, SSM and xLSTM states) under the
+    # reference's keys and fields
+    assert sorted(caches) == sorted(caches_ref)
+    for key, state in caches.items():
+        ref_state = caches_ref[key]
+        assert state._fields == ref_state._fields, key
+        for field, t, r in zip(state._fields, state, ref_state):
+            assert t.shape == r.shape, (key, field)
+            np.testing.assert_allclose(t.numpy(), np.asarray(r), rtol=1e-4,
+                                       atol=1e-4, err_msg=f"{key}.{field}")
+        if hasattr(state, "pos"):
+            assert state.pos.dtype == torch.int32
+            assert int(state.pos.max()) == S
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma2-27b", "hymba-1.5b",
+                                  "xlstm-350m", "granite-moe-3b-a800m"])
 def test_decode_matches_prefill_logits(arch):
-    """Teacher-forced decode reproduces prefill's next-token logits (gemma2:
-    through the sliding-window ring buffer, S > window)."""
+    """Teacher-forced decode reproduces prefill's next-token logits (gemma2
+    and hymba: through the sliding-window ring buffer, S > window; hymba and
+    xlstm: through the recurrent states).  MoE: a prefill dispatches the
+    whole sequence as one group of capacity C and drops what overflows,
+    while a decode step's group of one token never drops; so the identity
+    holds where the prefill drops nothing either, at capacity factor
+    E / K (C = the group)."""
     _, cfg = _cfgs(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     params = lm.init_params(4, cfg, device="cpu")
     rng = np.random.default_rng(5)
     B, S = 1, 40
@@ -188,13 +211,6 @@ def test_all_cells_enumerated_as_reference():
         assert a.reduced().hd == b.reduced().hd
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    _, cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        lm.init_params(0, cfg, device="cpu")
-
-
 def test_remat_policies_and_embed_chunk_change_no_bit():
     rcfg, cfg = _cfgs("smollm-135m")
     _, pp = _weights(rcfg, 6)
@@ -214,6 +230,71 @@ def test_remat_policies_and_embed_chunk_change_no_bit():
     # the reproducible embedding gradient is the same sum, exactly rounded
     torch.testing.assert_close(runs["embed7"][9], runs["nothing"][9],
                                rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_remat_policies_change_no_bit_in_recurrent_units(arch):
+    """The units' remat (``nothing``, ``dots``, ``none``) around the scan's
+    own checkpointed time chunks: 72 steps are a chunk of 64 and an exact
+    tail of 8.  Every policy gives the same gradient bits."""
+    rcfg, cfg = _cfgs(arch)
+    _, pp = _weights(rcfg, 6)
+    batch = _batch(rcfg, B=1, S=72, seed=6)
+    runs = {remat: _port_grads(pp, batch, cfg, remat_policy=remat)
+            for remat in ("nothing", "dots", "none")}
+    for name in ("dots", "none"):
+        assert torch.equal(runs[name][0], runs["nothing"][0]), name
+        for (path, _), a, b in zip(tree_mod.paths(pp), runs["nothing"][2],
+                                   runs[name][2]):
+            assert torch.equal(a, b), (name, path)
+    with torch.no_grad():
+        loss, _ = lm.loss_fn(pp, _torch(batch), cfg)
+    assert torch.equal(loss, runs["nothing"][0].detach())
+
+
+def test_moe_top_k_ties_follow_the_reference():
+    """Exact router ties go to the lower expert index, as ``lax.top_k``
+    orders them: on a tie-heavy table, and through a whole MoE block whose
+    zero router ties every expert (every token picks experts 0..K-1, and
+    the capacity drops what overflows in the reference's slot order)."""
+    from repro.models import moe as ref_moe
+
+    rng = np.random.default_rng(9)
+    probs = (rng.integers(0, 4, (64, 40)) / 4).astype(np.float32)
+    ref_v, ref_i = jax.lax.top_k(jnp.asarray(probs), 8)
+    v, i = moe.top_k(torch.from_numpy(probs), 8)
+    assert i.dtype == torch.int64
+    assert np.array_equal(i.numpy(), np.asarray(ref_i))
+    assert np.array_equal(v.numpy(), np.asarray(ref_v))
+
+    rcfg, cfg = _cfgs("granite-moe-3b-a800m")
+    rp = ref_moe.moe_init(jax.random.PRNGKey(3), rcfg)
+    rp["router"] = jnp.zeros_like(rp["router"])
+    pp = lm_params_from_numpy(jax.tree.map(np.asarray, rp), device="cpu")
+    x = (rng.standard_normal((2, 24, rcfg.d_model))).astype(np.float32)
+    ref_out, ref_aux = ref_moe.moe_block(jnp.asarray(x), rp, rcfg, group=24)
+    with torch.no_grad():
+        out, aux = moe.moe_block(torch.from_numpy(x), pp, cfg, group=24)
+    # capacity 8 of 24 tokens: the first 8 tokens keep expert 0 and 1
+    assert moe.group_capacity(24, cfg) == 8
+    kept = out.abs().sum(-1) > 0
+    assert kept[:, :8].all() and not kept[:, 8:].any()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), rtol=2e-5,
+                               atol=2e-5)
+    assert list(aux) == list(ref_aux)
+    for k in aux:
+        np.testing.assert_allclose(float(aux[k]), float(ref_aux[k]),
+                                   rtol=1e-6)
+
+
+def test_moe_prefill_length_must_split_into_groups():
+    _, cfg = _cfgs("granite-moe-3b-a800m")
+    params = lm.init_params(0, dataclasses.replace(cfg, moe_group=16),
+                            device="cpu")
+    toks = torch.zeros((1, 24), dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple of min"):
+        lm.prefill_step(params, {"tokens": toks},
+                        dataclasses.replace(cfg, moe_group=16), max_seq=32)
 
 
 def test_repro_embed_grads_close_to_reference():

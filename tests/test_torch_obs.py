@@ -163,7 +163,7 @@ def test_audit_runs_fresh_processes_on_the_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.obs.audit", "--out",
          str(tmp_path), "--quick", "--device", "cpu", "--serial",
-         "--timeout", "240"],
+         "--skip-train", "--timeout", "240"],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     summary = json.loads((tmp_path / "audit_summary.json").read_text())
@@ -179,6 +179,29 @@ def test_audit_runs_fresh_processes_on_the_cpu(tmp_path):
                            return_table=True)
     assert base["groupby/table"] == ref_fp.fingerprint_table(tab, spec)
     assert base["groupby/results"] == ref_fp.fingerprint_results(res)
+
+
+def test_audit_train_family_on_the_cpu(tmp_path):
+    """Reruns, the embedding-gradient chunk and 2 gloo ranks: the same
+    training fingerprints, each from a fresh process."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    env.pop("REPRO_TRACE", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.audit", "--out",
+         str(tmp_path), "--device", "cpu", "--skip-groupby",
+         "--skip-stream", "--timeout", "240"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    summary = json.loads((tmp_path / "audit_summary.json").read_text())
+    assert (summary["status"], summary["train"]) == ("pass", "identical")
+    assert summary["groupby"] is None and summary["stream"] is None
+    fps = [fp.read_fingerprints(str(tmp_path / f"fp_train_{tag}.json"))
+           for tag, _ in audit.TRAIN_VARIANTS]
+    assert {"loss_trajectory", "params", "opt"} <= set(fps[0])
+    assert fps[2][fp.MANIFEST_KEY]["mesh"]["data"] == 2
+    for other in fps[1:]:
+        assert fp.diff_fingerprints(fps[0], other) == []
+    assert "train=identical" in proc.stdout
 
 
 def test_audit_defaults_to_the_card(tmp_path, monkeypatch):

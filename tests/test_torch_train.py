@@ -11,11 +11,14 @@ steps.
   checkpoint and ends on the same bits as a run without one;
 * the loss goes down; a ``repro_embed`` run works and its ``embed_chunk``
   changes no bit; ``packed_wire`` changes no bit;
-* the CLI runs on the CPU when asked.
+* the CLI runs on the CPU when asked;
+* a reduced MoE (granite-moe ``.reduced()``: 8 experts, top-2, dispatch
+  groups of one sequence) gives the same bytes at widths 1 and 2: the
+  group-local capacity keeps the routing a function of the sequence.
 
 Widths run in a fresh subprocess each (``tests/_torch_dist.py``); this file
 is also their script: ``python tests/test_torch_train.py <world>
-<out_dir>``.
+<out_dir> [moe]``.
 """
 import json
 import os
@@ -67,6 +70,20 @@ def _rank(rank, world):
     return {mode: _summary(_run(mode)) for mode in ("repro_zero2", "repro")}
 
 
+MOE_SHAPE = ShapeConfig("t", seq_len=32, global_batch=4, kind="train")
+
+
+def _run_moe():
+    return _summary(train_loop(
+        configs.get_config("granite-moe-3b-a800m").reduced(), MOE_SHAPE,
+        _tc("repro_zero2", 2), steps=2, seed=5, log_every=10 ** 9,
+        device="cpu"))
+
+
+def _rank_moe(rank, world):
+    return _run_moe()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _one_intraop_thread():
     """The ranks run one thread each; so do the in-process runs compared
@@ -93,6 +110,20 @@ def test_width_invariance_and_grad_modes_bitwise(world, tmp_path,
     for r, got in enumerate(ranks):
         for mode in ("repro_zero2", "repro"):
             assert got[mode] == want, (world, r, mode)
+
+
+@pytest.fixture(scope="module")
+def moe_one_process():
+    return _run_moe()
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_moe_width_invariance_bitwise(world, tmp_path, moe_one_process):
+    want = moe_one_process
+    assert all(l == l for l in map(float.fromhex, want["losses"]))
+    ranks = _torch_dist.run_ranks(__file__, world, tmp_path, ("moe",))
+    for r, got in enumerate(ranks):
+        assert got == want, (world, r)
 
 
 def test_failure_restart_bitwise_continuity(tmp_path, one_process):
@@ -151,4 +182,4 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path):
 
 
 if __name__ == "__main__":
-    _torch_dist.main(_rank)
+    _torch_dist.main(_rank_moe if sys.argv[3:] == ["moe"] else _rank)
