@@ -61,8 +61,8 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    seconds and one merge of the Q1 table are timed.
 
 10. train: the port's reproducible training (``repro_torch.launch``) of
-   smollm-135m at full width and depth (30 layers, d=576, vocab 49152,
-   bfloat16), seq 1024, global batch 8 in quanta of one sequence, 3 steps,
+   smollm-135m at full width (d=576, vocab 49152, bfloat16) cut to 4 of
+   its 30 layers, seq 1024, global batch 8 in quanta of one sequence, 3 steps,
    in a spawned rank over NCCL: ``baseline``, ``repro_zero2``, ``repro``, a
    rerun and a restart from an injected failure at step 2 through a
    checkpoint — losses, parameter and optimizer digests equal across the
@@ -70,8 +70,8 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    (seq 256, 2 steps) at 1 rank and at 2 ranks over gloo with card
    tensors, digests equal (4 ranks cut to keep the whole script near half
    its time limit; the CPU tests hold widths 1, 2 and 4); the global norm
-   of one quantum's full-width gradient through the rsum kernel once per
-   leaf, with the CPU's bits;
+   of one quantum's full-width, full-depth gradient through the rsum
+   kernel once per leaf, with the CPU's bits;
    the embedding gradient's GROUPBY (G = 49152, 576 columns) under
    ``scatter``, the planner's pick and the segment kernel, one table; both
    kernels against their plain versions at these shapes.  Prints ms per
@@ -92,13 +92,37 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    peak memory, and one decode step's kernel launches and device idle
    share (``torch.profiler``).
 12. train_families: the same three at full width cut to 2 units (granite
-   and hymba 2 layers, xlstm 4 blocks), seq 256 (xlstm 128), global batch
+   and hymba 2 layers, xlstm 4 blocks), seq 256 (xlstm 64), global batch
    4 in quanta of one sequence, 2 steps, in a spawned NCCL rank:
    ``baseline``, ``repro_zero2``, ``repro`` and a rerun, with ``repro`` =
    ``repro_zero2`` = rerun in losses, parameter and optimizer digests,
    granite's ``repro`` at 2 gloo ranks = 1 rank (the MoE's group-local
    dispatch), and the rsum kernel once per gradient leaf per step (the
    global norm).  Prints ms per step and peak memory of each mode.
+13. tp: the tensor-parallel ``model`` axis, its ranks gloo ranks with card
+   tensors on the one card (NCCL takes one rank per GPU, so it runs only
+   at model size 1).  llama3.2-3b served at full width and depth (28
+   layers, 24 heads / 8 KV heads over 2 ranks) at model 1 and 2, batch 8,
+   256-token prompts, 16 greedy steps, and granite-moe-3b-a800m (20 of its
+   40 experts per rank; its 49155-entry vocabulary keeps the embedding
+   whole) at 128-token prompts and 4 steps: reruns byte-equal, the model
+   ranks' tokens and logits equal, the first decode step's float32-compute
+   logits at model 2 within 1e-3 of the largest logit of model 1's; TTFT,
+   decode tokens/s, one decode step's model-axis collectives, kernel
+   launches and idle share, peak memory per rank.  llama3.2-3b trained at
+   full width cut to 2 units (float32 compute, seq 256, global batch 2, 2
+   steps) at (data, model) = (2, 2) and (1, 2) in ``repro_zero2`` and
+   ``repro``, with equal losses, gathered parameter and optimizer digests,
+   and losses within 2e-5 of (1, 1)'s; at the reduced config (a
+   full-width checkpoint is 9.6 GB) a rerun and a checkpoint written at
+   (2, 2) and resumed at (1, 2) end on the same bits; the sharded global
+   norm through the
+   rsum kernel once per local leaf, with the bits of the CPU's and of the
+   gathered tree's; both kernels against their plain versions at the
+   axis's shapes (the rsum kernel at every local gradient leaf, the
+   segment kernel at the vocabulary shard's embedding GROUPBY, G = 64128).
+   Prints ms per step, model-axis collectives per step and peak memory per
+   rank.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  Without a CUDA device, or without the
@@ -108,12 +132,14 @@ result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -911,6 +937,10 @@ def stream_phase(torch, np, dev, values, keys, q1_want: dict,
 # phase 10: reproducible training of smollm-135m
 
 TRAIN_ARCH = "smollm-135m"
+# the full-width runs' depth: 4 of smollm's 30 layers (cut from full depth
+# to keep the script within its time limit with phase 13; the kernel
+# checks keep all 30)
+TRAIN_LAYERS = 4
 RUN_KEYS = ("losses", "loss_trajectory", "params", "opt")
 
 
@@ -918,7 +948,9 @@ def spawn_ranks(fn, world: int, args: tuple, timeout_s: float) -> list:
     """Spawn ``world`` ranks of ``fn(rank, world, store, out, *args)``,
     joined by a ``file://`` store in a temporary directory; wait at most
     ``timeout_s``, kill any that are left, and return each rank's
-    ``rank<r>.json``."""
+    ``rank<r>.json``.  If a rank fails, every rank's exit code and the
+    traceback of each rank that raised (``rank<r>.err``, written by
+    :func:`reports_errors`) go to standard error first."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -932,6 +964,13 @@ def spawn_ranks(fn, world: int, args: tuple, timeout_s: float) -> list:
                 check(time.monotonic() < deadline,
                       f"{world} ranks of {fn.__name__} did not finish in "
                       f"{timeout_s} s")
+        except Exception:
+            codes = [proc.exitcode for proc in ctx.processes]
+            print(f"chip_smoke: {fn.__name__} at {world} ranks: exit codes "
+                  f"{codes}", file=sys.stderr)
+            for err in sorted(Path(tmp).glob("rank*.err")):
+                print(f"--- {err.name}\n{err.read_text()}", file=sys.stderr)
+            raise
         finally:
             for proc in ctx.processes:
                 if proc.is_alive():
@@ -939,6 +978,20 @@ def spawn_ranks(fn, world: int, args: tuple, timeout_s: float) -> list:
                     proc.join()
         return [json.loads(Path(tmp, f"rank{r}.json").read_text())
                 for r in range(world)]
+
+
+def reports_errors(fn):
+    """A rank function that also writes a traceback it raises to
+    ``rank<r>.err`` in its ``out`` directory (``torch.multiprocessing``
+    reports only the first failing rank's)."""
+    @functools.wraps(fn)
+    def rank_fn(rank, world, store, out, *args):
+        try:
+            return fn(rank, world, store, out, *args)
+        except Exception:
+            Path(out, f"rank{rank}.err").write_text(traceback.format_exc())
+            raise
+    return rank_fn
 
 
 def _ms(torch, dev, fn, reps: int = 5) -> float:
@@ -1007,17 +1060,19 @@ def train_checks(torch, cfg, dev, seed: int, seq: int) -> dict:
         zstep = make_train_step(cfg, TrainConfig(), make_mesh(),
                                 ShapeConfig("train", seq, 1, "train"),
                                 device=dev)
-        zero = zstep.zero_dims(params)
-        shard0 = tree_mod.tree_map(zstep._scatter_one, grad_mod.tree_to_acc(
-            grads, spec), zero)
+        def scattered():
+            # leaf by leaf, as the step does
+            return tree_mod.tree_map(
+                lambda g, z: zstep._scatter_one(grad_mod.tree_to_acc(
+                    g, spec), z), grads, zstep.zdims)
+
+        shard0 = scattered()
 
         def quantum():
             step.grad_fn(params, mb)
 
         def accumulate():
-            accs = tree_mod.tree_map(zstep._scatter_one,
-                                     grad_mod.tree_to_acc(grads, spec), zero)
-            grad_mod.acc_merge_tree(shard0, accs, spec)
+            grad_mod.acc_merge_tree(shard0, scattered(), spec)
 
         for label, fn in (("quantum_grad", quantum),
                           ("zero2_accumulate", accumulate)):
@@ -1113,6 +1168,7 @@ def train_checks(torch, cfg, dev, seed: int, seq: int) -> dict:
     return out
 
 
+@reports_errors
 def train_rank(rank: int, world: int, store: str, out: str, backend: str,
                plan: dict) -> None:
     """One rank of the training phase: join ``backend``, run ``plan``'s
@@ -1133,8 +1189,10 @@ def train_rank(rank: int, world: int, store: str, out: str, backend: str,
     import torch.distributed as dist
 
     from repro_torch import configs
+    from repro_torch.core import collectives
     from repro_torch.kernels.rsum import ops as R
     from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train_loop
     from repro_torch.launch.train_step import TrainConfig
     from repro_torch.models.config import ShapeConfig
@@ -1154,10 +1212,16 @@ def train_rank(rank: int, world: int, store: str, out: str, backend: str,
     try:
         for job in plan["jobs"]:
             cfg = configs.get_config(job.get("arch", plan["arch"]))
-            if plan["reduced"]:
+            if job.get("reduced", plan["reduced"]):
                 cfg = cfg.reduced()
             jcfg = cfg if job.get("n_layers") is None else \
                 dataclasses.replace(cfg, n_layers=job["n_layers"])
+            if job.get("compute_dtype"):
+                jcfg = dataclasses.replace(
+                    jcfg, compute_dtype=job["compute_dtype"])
+            model = job.get("model", 1)
+            mesh = make_mesh(data=world // model, model=model) \
+                if model > 1 else None
             shape = ShapeConfig("train", job["seq"], job["batch"], "train")
             tc = TrainConfig(grad_mode=job["mode"], mb_size=1,
                              repro_embed=job.get("repro_embed", False),
@@ -1168,17 +1232,20 @@ def train_rank(rank: int, world: int, store: str, out: str, backend: str,
                 if dev.type == "cuda":
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
-                R.LAUNCHES = S.LAUNCHES = 0
+                R.LAUNCHES = S.LAUNCHES = collectives.MODEL_COLLECTIVES = 0
                 t0 = time.perf_counter()
-                res = train_loop(jcfg, shape, tc, steps=job["steps"],
+                res = train_loop(jcfg, shape, tc, mesh, steps=job["steps"],
                                  seed=plan["seed"], log_every=10 ** 9,
                                  device=dev,
-                                 ckpt_dir=ckdir if fail_at is not None
-                                 else None,
+                                 ckpt_dir=job.get("ckpt_dir") or (
+                                     ckdir if fail_at is not None else None),
                                  ckpt_every=job.get("ckpt_every", 50),
-                                 resume=fail_at is not None, fail_at=fail_at)
+                                 resume=fail_at is not None
+                                 or job.get("resume", False),
+                                 fail_at=fail_at)
                 secs = time.perf_counter() - t0
-                launches = (R.LAUNCHES, S.LAUNCHES)
+                launches = (R.LAUNCHES, S.LAUNCHES,
+                            collectives.MODEL_COLLECTIVES)
             recs[job["label"]] = {
                 "losses": [float(l).hex() for _, l in res.losses],
                 "loss_values": [l for _, l in res.losses],
@@ -1187,6 +1254,7 @@ def train_rank(rank: int, world: int, store: str, out: str, backend: str,
                 "steps_run": len(res.step_seconds),
                 "rsum_launches": launches[0],
                 "segment_launches": launches[1],
+                "model_collectives": launches[2],
                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
                 if dev.type == "cuda" else None}
         if plan["checks"] and rank == 0:
@@ -1195,6 +1263,16 @@ def train_rank(rank: int, world: int, store: str, out: str, backend: str,
                 cfg = cfg.reduced()
             recs["checks"] = train_checks(torch, cfg, dev, plan["seed"],
                                           plan["jobs"][0]["seq"])
+        if plan.get("tp_checks"):
+            job = plan["jobs"][0]
+            cfg = configs.get_config(plan["arch"])
+            cfg = cfg.reduced() if plan["reduced"] else cfg
+            cfg = dataclasses.replace(cfg, n_layers=job["n_layers"],
+                                      compute_dtype=job["compute_dtype"])
+            checks = tp_checks(torch, cfg, dev, make_mesh(
+                data=1, model=world), plan["seed"], job["seq"])
+            if rank == 0:
+                recs["tp_checks"] = checks
     finally:
         dist.destroy_process_group()
     Path(out, f"rank{rank}.json").write_text(json.dumps(recs))
@@ -1209,7 +1287,7 @@ def _step_ms(rec: dict) -> float:
 def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
                 arch: str = TRAIN_ARCH, reduced: bool = False,
                 seq: int = 1024, small_seq: int = 256,
-                steps: int = 3) -> dict:
+                steps: int = 3, n_layers: int = TRAIN_LAYERS) -> dict:
     """Phase 10: the port's reproducible training of ``arch`` at full
     width.  One rank over NCCL (gloo when rehearsing on the CPU) at full
     depth: ``baseline``, ``repro_zero2``, ``repro``, a rerun, a restart
@@ -1217,7 +1295,7 @@ def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
     2 layers at 1 and 2 ranks (gloo with card tensors).  Returns the
     numbers the kernels line carries."""
     t_phase = time.perf_counter()
-    full = dict(seq=seq, batch=8, steps=steps)
+    full = dict(seq=seq, batch=8, steps=steps, n_layers=n_layers)
     small = dict(label="depth2", mode="repro_zero2", n_layers=2,
                  seq=small_seq, batch=8, steps=2)
     jobs = [dict(label="baseline", mode="baseline", **full),
@@ -1227,7 +1305,7 @@ def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
             dict(label="repro_zero2_restart", mode="repro_zero2", fail_at=2,
                  ckpt_every=2, **full),
             dict(label="repro_embed", mode="repro_zero2", repro_embed=True,
-                 seq=seq, batch=8, steps=1),
+                 seq=seq, batch=8, steps=1, n_layers=n_layers),
             small]
     plan = {"arch": arch, "reduced": reduced, "device": device,
             "seed": seed, "jobs": jobs, "checks": True}
@@ -1288,7 +1366,8 @@ def train_phase(name: str, limit: str, seed: int, device: str = "cuda",
                      one[label]["segment_launches"] / one[label]["steps_run"]}
              for label in ("baseline", "repro_zero2", "repro",
                            "repro_embed", "depth2")}
-    rec = {"arch": arch, "reduced": reduced, "seq": seq, "global_batch": 8,
+    rec = {"arch": arch, "reduced": reduced, "layers": n_layers, "seq": seq,
+           "global_batch": 8,
            "mb_size": 1, "steps": steps,
            "losses": z2["loss_values"], "params_digest": z2["params"],
            "repro_equals_repro_zero2": True, "rerun_equal": True,
@@ -1333,7 +1412,7 @@ TEACHER_RTOL = 2e-2
 TRAIN_FAMILY_LAYERS = {"granite-moe-3b-a800m": 2, "hymba-1.5b": 2,
                        "xlstm-350m": 4}
 TRAIN_FAMILY_SEQ = {"granite-moe-3b-a800m": 256, "hymba-1.5b": 256,
-                    "xlstm-350m": 128}
+                    "xlstm-350m": 64}
 
 
 def serve_model(torch, np, dev, arch: str, seed: int, reduced: bool = False,
@@ -1564,6 +1643,501 @@ def train_families_phase(name: str, limit: str, seed: int,
     rec = {"models": models, "global_batch": 4, "mb_size": 1, "steps": 2,
            "seconds": time.perf_counter() - t0}
     emit(phase="train_families", card=name, power_limit=limit, **rec)
+    return rec
+
+# ---------------------------------------------------------------------------
+# phase 13: the tensor-parallel model axis
+
+TP_ARCH = "llama3.2-3b"
+# serving: llama3.2-3b at full width and depth at model 1 and 2, granite's
+# experts over 2 model ranks for a few decode steps (its vocabulary, 49155,
+# keeps the embedding whole)
+TP_SERVE = {"llama3.2-3b": dict(prompt_len=256, gen=16, batch=8),
+            "granite-moe-3b-a800m": dict(prompt_len=128, gen=4, batch=8)}
+# the first decode step's float32-compute logits at model 2 against model
+# 1: max |difference| over max |logit|
+TP_LOGIT_RTOL = 1e-3
+# training: llama3.2-3b at full width cut to 2 units, float32 compute (so
+# the comparison with (data, model) = (1, 1) holds the loss tolerance of
+# tests/test_torch_models.py), seq 256, global batch 2 in quanta of one
+# sequence, 2 steps
+TP_TRAIN = dict(arch=TP_ARCH, n_layers=2, seq=256, batch=2, steps=2,
+                compute_dtype="float32")
+TP_LOSS_RTOL = 2e-5
+# the embedding gradient's GROUPBY runs segment_rsum(method="scatter")
+# (models/common.py::EmbedRepro), so the repro_embed step launches the
+# segment kernel no time; tp_checks holds the kernel at that GROUPBY's
+# shape against its plain version
+TP_EMBED_SEGMENT_LAUNCHES = 0
+
+
+def tp_checks(torch, cfg, dev, mesh, seed: int, seq: int) -> dict:
+    """The kernels at the model axis's shapes, on every rank of a model
+    group (the gradients need all of them):
+
+    * one quantum's gradient shards; their global norm through the rsum
+      kernel once per local leaf (each element counted once across the
+      axis), with the bits of the same norm on the CPU and of the norm of
+      the gathered (model size 1) gradient tree; the rsum kernel against
+      its plain version at every local leaf's shape, timed at the largest
+      (``torch.sum`` as the library call);
+    * the segment kernel at the vocabulary shard's embedding GROUPBY
+      (G = vocab / model, d_model columns, one quantum's rows) against its
+      plain version, timed (``index_add_`` of the float32 rows as the
+      library call)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.core import accumulator as acc_mod
+    from repro_torch.core.types import ReproSpec
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.rsum import ops as R
+    from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.train import build_batch
+    from repro_torch.launch.train_step import TrainConfig, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import grad as grad_mod
+
+    spec = ReproSpec()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    step = make_train_step(cfg, TrainConfig(grad_mode="repro"), mesh,
+                           ShapeConfig("train", seq, 1, "train"), device=dev)
+    params = sh.shard_params(lm.init_params(seed, cfg, dev), mesh, cfg)
+    mb = build_batch(DataConfig(seed=seed, global_batch=1, seq_len=seq,
+                                vocab=cfg.vocab), cfg, 0, 1, 1, device=dev)
+    mb = {k: v[0] for k, v in mb.items()}
+    grads, _ = step.grad_fn(params, mb)
+    del params
+    leaves = tree_mod.leaves(grads)
+    out = {"leaves": len(leaves), "model": mesh.model_size,
+           "split_leaves": sum(d is not None
+                               for d in tree_mod.leaves(step.mdims))}
+    weights = step._norm_weights(False, dev)
+    R.LAUNCHES = 0
+    sync()
+    t0 = time.perf_counter()
+    norm = grad_mod.repro_global_norm(grads, spec, weights, tp=mesh.tp)
+    sync()
+    out["norm_card_ms"] = (time.perf_counter() - t0) * 1e3
+    out["norm_rsum_launches"] = R.LAUNCHES
+    host = tree_mod.tree_map(lambda g: g.cpu(), grads)
+    on_cpu = grad_mod.repro_global_norm(
+        host, spec, [None if w is None else w.cpu() for w in weights],
+        tp=mesh.tp)
+    full = sh.gather_params(grads, mesh, cfg)
+    whole = grad_mod.repro_global_norm(full, spec)
+    del host, full
+    out["norm"] = float(norm)
+    out["norm_bits"] = {k: v.cpu().numpy().tobytes().hex() for k, v in (
+        ("card", norm), ("cpu", on_cpu), ("gathered", whole))}
+
+    worst, big = 0, None
+    for g in leaves:
+        x = torch.square(g.to(torch.float32)).reshape(-1, 1).contiguous()
+        e1 = acc_mod.required_e1(x, spec, axis=0)
+        A, inv = R.ladder(e1, spec, (0, spec.L))
+        if on_card:
+            for a, b in zip(R.rsum_levels_kernel(x, A, inv, spec),
+                            R.rsum_levels_plain(x, A, inv, spec)):
+                worst = max(worst, int((a.long() - b.long()).abs().max()))
+        if big is None or x.shape[0] > big[0].shape[0]:
+            big = (x, A, inv)
+    x, A, inv = big
+    n = x.shape[0]
+    kernel = R.rsum_levels_kernel if on_card else R.rsum_levels_plain
+    bound, by = _bound_ms(4 * n, 6 * n * spec.L)
+    out["rsum"] = {
+        "n": n, "max_abs_err": worst,
+        "ms": _ms(torch, dev, lambda: kernel(x, A, inv, spec), reps=10),
+        "plain_ms": _ms(torch, dev, lambda: R.rsum_levels_plain(
+            x, A, inv, spec), reps=3),
+        "library_ms": _ms(torch, dev, lambda: x.sum(dim=0), reps=10),
+        "bound_ms": bound, "bound_by": by}
+    del grads, leaves, big, x
+
+    # the embedding GROUPBY over this rank's vocabulary shard
+    vl = cfg.vocab // mesh.model_size
+    ids = mb["tokens"].reshape(-1).to(torch.int64) - mesh.model_rank * vl
+    held = (ids >= 0) & (ids < vl)
+    ids = torch.where(held, ids, 0).to(torch.int32)
+    rows, d = ids.shape[0], cfg.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    cot = torch.randn((rows, d), generator=gen, device=dev) * 1e-3
+    cot = cot * held[:, None].to(cot.dtype)      # rows of other shards: 0
+    e1 = acc_mod.required_e1(cot, spec).expand(d).contiguous()
+    A, inv = R.ladder(e1, spec, (0, spec.L))
+    skernel = S.segment_levels_kernel if on_card else S.segment_levels_plain
+    S.LAUNCHES = 0
+    kc = skernel(cot, ids, vl, A, inv, spec)
+    forced = S.LAUNCHES
+    kp = S.segment_levels_plain(cot, ids, vl, A, inv, spec)
+    serr = max(int((a.long() - b.long()).abs().max()) for a, b in zip(kc, kp))
+    del kc, kp
+    table = torch.zeros((vl, d), device=dev)
+    lids = ids.to(torch.int64)
+    bound, by = _bound_ms(4 * rows + 4 * rows * d + 2 * 4 * vl * d * spec.L,
+                          5 * rows * d * spec.L)
+    out["embed"] = {
+        "rows": rows, "G": vl, "ncols": d, "max_abs_err": serr,
+        "forced_launches": forced,
+        "path": S.launch_shape(rows, vl, d, spec.L, 132).path,
+        "ms": _ms(torch, dev, lambda: skernel(cot, ids, vl, A, inv, spec),
+                  reps=3),
+        "plain_ms": _ms(torch, dev, lambda: S.segment_levels_plain(
+            cot, ids, vl, A, inv, spec), reps=2),
+        "library_ms": _ms(torch, dev, lambda: table.index_add_(0, lids,
+                                                               cot)),
+        "bound_ms": bound, "bound_by": by}
+    return out
+
+
+@reports_errors
+def tp_serve_rank(rank: int, world: int, store: str, out: str, backend: str,
+                  plan: dict) -> None:
+    """One rank of phase 13's serving: model = ``world``.  Per model of
+    ``plan``: random weights drawn whole from the seed (on the card) and
+    sharded; two generates as served (no logits returned: the first cold,
+    the second timed, with its model-axis collectives); two generates
+    returning the logits, gathered whole over the model axis (the same
+    tokens, and the same logits bytes); one decode step's model-axis
+    collectives, launches and idle share; a generate in float32 compute
+    whose first decode step's logits go to ``out``; peak memory."""
+    import dataclasses
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core import collectives
+    from repro_torch.kernels.rsum import ops as R
+    from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.launch import serve
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+
+    dev = torch.device(plan["device"], 0) if plan["device"] == "cuda" \
+        else torch.device("cpu")
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300),
+        device_id=dev if backend == "nccl" else None)
+    recs = {}
+    try:
+        mesh = make_mesh(data=1, model=world)
+        for arch, job in plan["jobs"].items():
+            cfg = configs.get_config(arch)
+            cfg = cfg.reduced() if plan["reduced"] else cfg
+            B, PL, gen = job["batch"], job["prompt_len"], job["gen"]
+            max_seq = PL + gen
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            draw = torch.Generator(device=dev).manual_seed(plan["seed"])
+            params = sh.shard_params(lm.init_params(draw, cfg, dev), mesh,
+                                     cfg)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            rec = {"init_s": time.perf_counter() - t0,
+                   "local_params": lm.param_count(params),
+                   "batch": B, "prompt_len": PL, "gen_steps": gen}
+            if on_card:
+                # the whole draw before sharding peaks here; serving's own
+                # peak is counted from now on
+                rec["weights_gb"] = torch.cuda.memory_allocated() / 1e9
+                rec["init_peak_mem_gb"] = \
+                    torch.cuda.max_memory_allocated() / 1e9
+                torch.cuda.reset_peak_memory_stats()
+            prompts = torch.from_numpy(np.random.default_rng(
+                plan["seed"]).integers(0, cfg.vocab, (B, PL)).astype(
+                    np.int32)).to(dev)
+            R.LAUNCHES = S.LAUNCHES = 0
+            # as served: the tokens only
+            toks0, st1 = serve.generate_with_stats(
+                params, cfg, prompts, max_seq, gen, mesh=mesh)
+            collectives.MODEL_COLLECTIVES = 0
+            toks1, st2 = serve.generate_with_stats(
+                params, cfg, prompts, max_seq, gen, mesh=mesh)
+            rec["collectives_per_generate"] = collectives.MODEL_COLLECTIVES
+            # with the logits, for the byte checks (not timed)
+            toks, _, logits = serve.generate_with_stats(
+                params, cfg, prompts, max_seq, gen, return_logits=True,
+                mesh=mesh)
+            toks2, _, logits2 = serve.generate_with_stats(
+                params, cfg, prompts, max_seq, gen, return_logits=True,
+                mesh=mesh)
+            rec["rerun_equal"] = all(torch.equal(toks, t) for t in (
+                toks0, toks1, toks2)) and \
+                logits.cpu().numpy().tobytes() == \
+                logits2.cpu().numpy().tobytes()
+            rec["finite"] = bool(torch.isfinite(logits).all()) and \
+                0 <= int(toks.min()) and int(toks.max()) < cfg.vocab
+            rec["kernel_launches"] = {"rsum": R.LAUNCHES,
+                                      "segment_rsum": S.LAUNCHES}
+            rec.update(ttft_cold_ms=st1["ttft_s"] * 1e3,
+                       ttft_ms=st2["ttft_s"] * 1e3,
+                       decode_tok_per_s=st2["decode_tok_per_s"],
+                       decode_ms_per_step=st2["decode_s"] * 1e3
+                       / max(gen - 1, 1),
+                       tokens=toks[0, :8].tolist())
+            del logits, logits2
+            # one decode step after the prompt and the generated tokens
+            with torch.inference_mode():
+                _, caches = lm.prefill_step(
+                    params, {"tokens": torch.cat([prompts, toks[:, :-1]],
+                                                 1)}, cfg, max_seq, mesh.tp)
+            step_batch = {"tokens": toks[:, -1:], "positions": torch.full(
+                (B, 1), max_seq - 1, dtype=torch.int32, device=dev)}
+
+            def decode_once():
+                with torch.inference_mode():
+                    lm.decode_step(params, caches, step_batch, cfg, mesh.tp)
+
+            collectives.MODEL_COLLECTIVES = 0
+            decode_once()
+            rec["collectives_per_decode_step"] = \
+                collectives.MODEL_COLLECTIVES
+            if on_card:
+                wall = host_ms(torch, decode_once, reps=5)
+                prof = device_profile(torch, decode_once, wall)
+                rec["decode_step"] = {
+                    "wall_ms": wall, "device_busy_ms": prof["device_busy_ms"],
+                    "kernel_launches": prof["kernel_launches"],
+                    "device_idle_share": prof["device_idle_share"],
+                    "top_kernel_device_ms": prof["top_kernel_device_ms"]}
+            del caches
+            # float32 compute: the first decode step's logits
+            f32 = dataclasses.replace(cfg, compute_dtype="float32")
+            _, _, lg32 = serve.generate_with_stats(
+                params, f32, prompts, PL + 2, 2, return_logits=True,
+                mesh=mesh)
+            np.save(Path(plan["out"], f"{arch}-model{world}-rank{rank}.npy"),
+                    lg32[:, 1].cpu().numpy())
+            if on_card:
+                rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            recs[arch] = rec
+            del params, lg32
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def tp_phase(name: str, limit: str, seed: int, device: str = "cuda",
+             reduced: bool = False, serve_jobs=None, train=None) -> dict:
+    """Phase 13: the model axis.  Model ranks on the one card are gloo
+    ranks with card tensors (NCCL takes one rank per GPU, so it runs at
+    model size 1 only).
+
+    * serving: llama3.2-3b at full width and depth at model 1 (one NCCL
+      rank) and 2, granite-moe-3b-a800m at 1 and 2 (20 experts per rank);
+      reruns byte-equal, the first decode step's float32-compute logits at
+      model 2 within ``TP_LOGIT_RTOL`` of model 1's;
+    * training: llama3.2-3b at full width, 2 units, at (data, model) =
+      (2, 2) and (1, 2) in ``repro_zero2`` and ``repro``, and at (1, 1):
+      equal losses, gathered parameter and optimizer digests at model 2,
+      losses within ``TP_LOSS_RTOL`` of (1, 1), the rsum kernel once per
+      local leaf per step; one ``repro_embed`` step at (1, 2) (its loss
+      that of ``repro_zero2``'s first step, its segment-kernel launches
+      ``TP_EMBED_SEGMENT_LAUNCHES``); at the reduced config, a rerun and
+      a checkpoint written at (2, 2) and resumed at (1, 2), equal to the
+      uninterrupted run;
+    * both kernels against their plain versions at the axis's shapes
+      (:func:`tp_checks`)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    # four training ranks share the card: the expandable allocator keeps
+    # each one's freed blocks reusable for the accumulators' large leaves
+    # (read when a rank first allocates; this process's allocator is set)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    serve_jobs = serve_jobs or TP_SERVE
+    train = dict(TP_TRAIN, **(train or {}))
+    backend1 = "nccl" if device == "cuda" else "gloo"
+    rec = {"serve": {}, "train": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = {"device": device, "reduced": reduced, "seed": seed,
+                "jobs": serve_jobs, "out": tmp}
+        t_serve = time.perf_counter()
+        one = spawn_ranks(tp_serve_rank, 1, (backend1, plan), 600.0)[0]
+        two = spawn_ranks(tp_serve_rank, 2, ("gloo", plan), 600.0)
+        rec["serve_seconds"] = time.perf_counter() - t_serve
+        for arch in serve_jobs:
+            for label, r in (("model1", one[arch]), ("model2", two[0][arch]),
+                             ("model2 rank 1", two[1][arch])):
+                check(r["rerun_equal"] and r["finite"],
+                      f"tp serve {arch} {label}: a rerun differs or a token "
+                      "or logit is out of range")
+                check(r["kernel_launches"] == {"rsum": 0, "segment_rsum": 0},
+                      f"tp serve {arch} {label}: a GROUPBY kernel launched")
+            check(two[0][arch]["tokens"] == two[1][arch]["tokens"],
+                  f"tp serve {arch}: the model ranks' tokens differ")
+            l1 = np.load(Path(tmp, f"{arch}-model1-rank0.npy"))
+            l2 = [np.load(Path(tmp, f"{arch}-model2-rank{r}.npy"))
+                  for r in range(2)]
+            check(l2[0].tobytes() == l2[1].tobytes(),
+                  f"tp serve {arch}: the model ranks' logits differ")
+            err = float(np.abs(l2[0] - l1).max())
+            scale = float(np.abs(l1).max())
+            check(np.isfinite(l2[0]).all() and err <= TP_LOGIT_RTOL * scale,
+                  f"tp serve {arch}: model 2's first decode step differs "
+                  f"from model 1's by {err} (logits up to {scale})")
+            rec["serve"][arch] = {
+                "model1": one[arch], "model2": two[0][arch],
+                "model2_rank1_peak_mem_gb": two[1][arch].get("peak_mem_gb"),
+                "first_decode_f32": {"max_abs_err": err,
+                                     "max_abs_logit": scale,
+                                     "rel_err": err / scale,
+                                     "rtol": TP_LOGIT_RTOL},
+                "tokens_equal_model1": one[arch]["tokens"]
+                == two[0][arch]["tokens"]}
+        emit(phase="tp_serve", card=name, power_limit=limit,
+             seconds=rec["serve_seconds"], **rec["serve"])
+
+        # training: (2, 2) checkpoints after steps 1 and 2; (1, 2) resumes
+        # from the step-1 checkpoint
+        t_train = time.perf_counter()
+        shape = {k: train[k] for k in ("arch", "n_layers", "seq", "batch",
+                                       "steps", "compute_dtype")}
+        # the rerun and the restart across meshes at the reduced config:
+        # a full-width checkpoint is 9.6 GB, and its save and its restore
+        # each take about 100 s on an H100 host, past the script's budget
+        small = dict(shape, reduced=True)
+        written, resume = Path(tmp, "ckpt22"), Path(tmp, "ckpt12")
+        jobs4 = [dict(label="repro_zero2", mode="repro_zero2", model=2,
+                      **shape),
+                 dict(label="repro", mode="repro", model=2, **shape),
+                 dict(label="small_written", mode="repro_zero2", model=2,
+                      ckpt_dir=str(written), ckpt_every=1,
+                      **dict(small, steps=train["steps"] - 1))]
+        jobs2 = [dict(label="repro_zero2", mode="repro_zero2", model=2,
+                      **shape),
+                 dict(label="repro", mode="repro", model=2, **shape),
+                 # the reproducible embedding gradient over the vocabulary
+                 # shards (G = vocab / 2 per rank), one step
+                 dict(label="repro_embed", mode="repro_zero2", model=2,
+                      repro_embed=True, **dict(shape, steps=1)),
+                 dict(label="small", mode="repro_zero2", model=2, **small),
+                 dict(label="small_rerun", mode="repro_zero2", model=2,
+                      **small),
+                 dict(label="small_resumed", mode="repro_zero2", model=2,
+                      ckpt_dir=str(resume), resume=True,
+                      ckpt_every=train["steps"], **small)]
+        tplan = {"arch": train["arch"], "reduced": reduced,
+                 "device": device, "seed": seed, "checks": False}
+        runs = {}
+        for world, jobs, checks in ((4, jobs4, False), (2, jobs2, True)):
+            t_w = time.perf_counter()
+            runs[world] = spawn_ranks(train_rank, world, ("gloo", dict(
+                tplan, jobs=jobs, tp_checks=checks)), 900.0)
+            rec["train"][f"seconds_{world}_ranks"] = \
+                time.perf_counter() - t_w
+            emit(phase="tp_train_ranks", world=world,
+                 seconds=time.perf_counter() - t_w, runs={
+                     label: {k: r[k] for k in (
+                         "losses", "params", "opt", "step_s", "seconds",
+                         "peak_mem_gb")}
+                     for label, r in runs[world][0].items()
+                     if label != "tp_checks"})
+            if world == 4:
+                resume.mkdir()
+                Path(written, "step_00000001").rename(
+                    resume / "step_00000001")
+        t_w = time.perf_counter()
+        runs[1] = spawn_ranks(train_rank, 1, (backend1, dict(
+            tplan, jobs=[dict(label="repro_zero2", mode="repro_zero2",
+                              **shape)])), 600.0)
+        rec["train"]["seconds_1_rank"] = time.perf_counter() - t_w
+        rec["train_seconds"] = time.perf_counter() - t_train
+    want = runs[2][0]["repro_zero2"]
+    for world in (4, 2):
+        for r, rrec in enumerate(runs[world]):
+            for label in ("repro_zero2", "repro"):
+                for key in RUN_KEYS:
+                    check(rrec[label][key] == want[key],
+                          f"tp train at {world} ranks (rank {r}): "
+                          f"{label}'s {key} != (1, 2)'s repro_zero2")
+    for r, rrec in enumerate(runs[2]):
+        ref, got = rrec["small"], rrec["small_resumed"]
+        for key in RUN_KEYS:
+            check(rrec["small_rerun"][key] == ref[key],
+                  f"tp train: the reduced rerun's {key} differs (rank {r})")
+        check(got["losses"] == ref["losses"][train["steps"] - 1:]
+              and got["params"] == ref["params"]
+              and got["opt"] == ref["opt"],
+              f"tp train: the (2, 2) checkpoint resumed at (1, 2) (rank {r})"
+              " does not end on the uninterrupted run's bits")
+    for r, rrec in enumerate(runs[2]):
+        emb = rrec["repro_embed"]
+        check(emb["losses"] == want["losses"][:1]
+              and emb["losses"] == runs[2][0]["repro_embed"]["losses"],
+              f"tp train: the repro_embed step's loss (rank {r}) differs "
+              "from repro_zero2's first or from rank 0's")
+        check(emb["segment_launches"] == TP_EMBED_SEGMENT_LAUNCHES,
+              f"tp train: the repro_embed step launched the segment kernel "
+              f"{emb['segment_launches']} times (rank {r}), not "
+              f"{TP_EMBED_SEGMENT_LAUNCHES}")
+    base = runs[1][0]["repro_zero2"]
+    for a, b in zip(want["loss_values"], base["loss_values"]):
+        check(math.isfinite(a) and abs(a - b) <= TP_LOSS_RTOL * abs(b),
+              f"tp train: (1, 2) loss {a} vs (1, 1) {b} beyond "
+              f"rtol {TP_LOSS_RTOL}")
+    c = runs[2][0]["tp_checks"]
+    check(device != "cuda" or c["norm_rsum_launches"] == c["leaves"],
+          f"tp train: the global norm launched rsum {c['norm_rsum_launches']}"
+          f" times for {c['leaves']} local leaves")
+    bits = c["norm_bits"]
+    check(bits["card"] == bits["cpu"] == bits["gathered"],
+          f"tp train: the sharded global norm's bits differ: {bits}")
+    check(c["rsum"]["max_abs_err"] == 0 and c["embed"]["max_abs_err"] == 0,
+          "tp train: a kernel differs from its plain version at the model "
+          "axis's shapes")
+    modes = {}
+    for world, label in ((2, "repro_zero2"), (2, "repro"), (2, "repro_embed"),
+                         (4, "repro_zero2"), (4, "repro"), (1, "repro_zero2")):
+        r0 = runs[world][0][label]
+        steps = r0["steps_run"]
+        check(device != "cuda" or r0["rsum_launches"] > 0,
+              f"tp train: {label} at {world} ranks did not launch rsum")
+        modes[f"{label}@{world}"] = {
+            "ms_per_step": _step_ms(r0), "step_s": r0["step_s"],
+            "peak_mem_gb_per_rank": [r[label]["peak_mem_gb"]
+                                     for r in runs[world]],
+            "rsum_launches_per_step": r0["rsum_launches"] / steps,
+            "segment_launches_per_step": r0["segment_launches"] / steps,
+            "model_collectives_per_step": r0["model_collectives"] / steps,
+            "seconds": r0["seconds"]}
+    steps = train["steps"]
+    rec["train"].update({
+        "arch": train["arch"], "layers": train["n_layers"],
+        "seq": train["seq"], "global_batch": train["batch"], "steps": steps,
+        "compute_dtype": train["compute_dtype"],
+        "losses": want["loss_values"], "losses_model1": base["loss_values"],
+        "params_digest": want["params"], "modes": modes,
+        "equal_across_widths_modes": True,
+        "reduced_rerun_and_restart_equal": True,
+        "global_norm": {k: c[k] for k in ("norm", "leaves", "split_leaves",
+                                          "norm_rsum_launches",
+                                          "norm_card_ms")},
+        "kernels": {"rsum": c["rsum"], "embed": c["embed"]}})
+    rec["seconds"] = time.perf_counter() - t0
+    emit(phase="tp", card=name, power_limit=limit,
+         **{k: v for k, v in rec.items() if k != "serve"})
     return rec
 
 
@@ -1914,6 +2488,11 @@ def run(args) -> dict:
     # -- phase 12: the same three trained at full width, 2 units ----------
     families = train_families_phase(name, limit, args.seed)
 
+    # -- phase 13: the tensor-parallel model axis --------------------------
+    tp = tp_phase(name, limit, args.seed)
+    tp_kernels = tp["train"]["kernels"]
+    tp_modes = tp["train"]["modes"]
+
     kernels = [
         {"name": "segment_rsum", "route": "cuda",
          "path": S.launch_shape(n, 4, X.shape[1], nlev, 132).path,
@@ -1932,6 +2511,15 @@ def run(args) -> dict:
                        "planner", "max_abs_err", "ms", "plain_ms",
                        "library_ms", "bound_ms", "bound_by")}},
          "serve_launches": served["kernel_launches"]["segment_rsum"],
+         "tp": {"shape": [tp_kernels["embed"]["rows"],
+                          tp_kernels["embed"]["G"],
+                          tp_kernels["embed"]["ncols"]],
+                "launches_per_step": {
+                    k: m["segment_launches_per_step"]
+                    for k, m in tp_modes.items()},
+                **{k: tp_kernels["embed"][k] for k in (
+                    "path", "forced_launches", "max_abs_err", "ms",
+                    "plain_ms", "library_ms", "bound_ms", "bound_by")}},
          "ms": seg_ms, "call_ms": seg_call_ms, "plain_ms": seg_plain_ms,
          "bound_ms": seg_bound * 1e3,
          "bound_by": "bytes" if seg_bytes / HBM_BYTES_PER_S
@@ -1956,6 +2544,15 @@ def run(args) -> dict:
                         "rsum_launches_per_step"]}
              for arch, m in families["models"].items()},
          "serve_launches": served["kernel_launches"]["rsum"],
+         "tp": {"leaves": tp["train"]["global_norm"]["leaves"],
+                "launches_per_step": {
+                    k: m["rsum_launches_per_step"]
+                    for k, m in tp_modes.items()},
+                "norm_launches": tp["train"]["global_norm"][
+                    "norm_rsum_launches"],
+                **{k: tp_kernels["rsum"][k] for k in (
+                    "n", "max_abs_err", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")}},
          "ms": rsum_ms, "call_ms": rsum_call_ms, "plain_ms": rsum_plain_ms,
          "bound_ms": rsum_bound * 1e3,
          "bound_by": "bytes" if rsum_bytes / HBM_BYTES_PER_S

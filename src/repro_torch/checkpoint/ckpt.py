@@ -62,6 +62,14 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
+def _sha256(f) -> str:
+    """sha256 hex digest of an open binary file, read in 16 MiB pieces."""
+    h = hashlib.sha256()
+    for piece in iter(lambda: f.read(1 << 24), b""):
+        h.update(piece)
+    return h.hexdigest()
+
+
 def _host(x) -> np.ndarray:
     """A host copy of a tensor or array leaf (never a view of live data)."""
     if isinstance(x, torch.Tensor):
@@ -122,7 +130,7 @@ def save(directory: str, step: int, tree, extra: Optional[dict] = None,
         npz_path = os.path.join(tmp, "arrays.npz")
         np.savez(npz_path, **flat)
         with open(npz_path, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()
+            digest = _sha256(f)
         tree_fp = obs_fp.fingerprint_pytree(flat)
         manifest = {
             "step": step,
@@ -260,7 +268,7 @@ def restore(directory: str, skeleton, step: Optional[int] = None,
         npz_path = os.path.join(path, "arrays.npz")
         if verify:
             with open(npz_path, "rb") as f:
-                digest = hashlib.sha256(f.read()).hexdigest()
+                digest = _sha256(f)
             if digest != manifest["sha256"]:
                 raise IOError(f"checkpoint {path} corrupt (sha mismatch)")
         with np.load(npz_path) as data:

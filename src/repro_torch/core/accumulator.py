@@ -175,15 +175,24 @@ def demote_to(acc: ReproAcc, e1_new, spec: ReproSpec) -> ReproAcc:
     if acc.e1.ndim == 0 and e1_new.ndim == 0:
         # per-tensor lattice: the shift is clamped into [0, L]
         s = torch.clamp(s, 0, spec.L)
-    idx = torch.arange(spec.L, dtype=torch.int32, device=acc.k.device) \
-        - s[..., None]
-    valid = idx >= 0
-    idx = torch.clamp(idx, 0, spec.L - 1).to(torch.int64)
-    idx = idx.expand(acc.k.shape)
+    # new level i takes old level i - s (zero where i - s < 0), selected
+    # level by level: no index tensor of the accumulator's size is built
+    # (a per-element e1 would make it (..., L) int64)
     zero = acc.k.new_zeros(())
-    k = torch.where(valid, torch.take_along_dim(acc.k, idx, dim=-1), zero)
-    C = torch.where(valid, torch.take_along_dim(acc.C, idx, dim=-1), zero)
-    return ReproAcc(k=k, C=C, e1=e1_new)
+    ks, Cs = [], []
+    for i in range(spec.L):
+        src = i - s
+        valid = src >= 0
+        src = torch.clamp(src, 0, spec.L - 1)
+        ki = Ci = zero
+        for j in range(spec.L):
+            pick = valid & (src == j)
+            ki = torch.where(pick, acc.k[..., j], ki)
+            Ci = torch.where(pick, acc.C[..., j], Ci)
+        ks.append(ki.expand(acc.k.shape[:-1]))
+        Cs.append(Ci.expand(acc.C.shape[:-1]))
+    return ReproAcc(k=torch.stack(ks, dim=-1), C=torch.stack(Cs, dim=-1),
+                    e1=e1_new)
 
 
 def merge(a: ReproAcc, b: ReproAcc, spec: ReproSpec) -> ReproAcc:

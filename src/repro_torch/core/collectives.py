@@ -21,8 +21,19 @@ level before the gather, halving the gather's bytes at no cost in accuracy.
 Every function takes ``groups``: a process group, ``None`` for the default
 (world) group, or a sequence of them reduced in turn.  The backend is the
 caller's: NCCL for tensors on the card, gloo for tensors on the CPU.
+
+The tensor-parallel ``model`` axis (:class:`TP`) adds floats, not
+accumulators.  Its sums (:func:`model_sum`) are an all-gather followed by
+a sum in model-rank order, ``((x0 + x1) + x2) + ...``, never a backend
+``all_reduce``: every model rank then holds the same bits, and gloo on
+the CPU, gloo with card tensors and NCCL give the same bits.  A :class:`TP`
+of size 1, or ``None``, makes them return their input.  The autograd
+functions built on them are in :mod:`repro_torch.models.tp`.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -34,6 +45,8 @@ from repro_torch.core.types import ReproSpec
 __all__ = [
     "max_axis_size", "all_reduce", "repro_psum", "repro_psum_scatter",
     "repro_psum_packed", "pack_acc", "unpack_acc",
+    "TP", "model_active", "model_stack", "model_sum", "model_all_gather",
+    "MODEL_COLLECTIVES",
 ]
 
 
@@ -187,3 +200,54 @@ def repro_psum_packed(acc: ReproAcc, spec: ReproSpec,
         dist.all_gather_into_tensor(full, word.contiguous(), group=g)
         word = full
     return unpack_acc(word, e1, spec)     # e1 is replicated already
+
+
+# ---------------------------------------------------------------------------
+# the model axis: float sums in model-rank order
+# ---------------------------------------------------------------------------
+
+MODEL_COLLECTIVES = 0    # model-axis collectives issued in this process
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """The model axis of one rank: its process group (``None`` is the
+    default group), its size and this rank's place on it."""
+    group: object
+    size: int
+    rank: int
+
+
+def model_active(tp: Optional[TP]) -> bool:
+    return tp is not None and tp.size > 1
+
+
+def model_stack(x: torch.Tensor, tp: TP) -> torch.Tensor:
+    """Every model rank's ``x``, stacked on a new leading dim in rank
+    order."""
+    global MODEL_COLLECTIVES
+    MODEL_COLLECTIVES += 1
+    src = x.contiguous().reshape(-1)
+    out = src.new_empty((tp.size * src.shape[0],))
+    dist.all_gather_into_tensor(out, src, group=tp.group)
+    return out.reshape(tp.size, *x.shape)
+
+
+def model_sum(x: torch.Tensor, tp: Optional[TP]) -> torch.Tensor:
+    """The model ranks' ``x`` summed in rank order."""
+    if not model_active(tp):
+        return x
+    parts = model_stack(x, tp)
+    out = parts[0]
+    for r in range(1, tp.size):
+        out = out + parts[r]
+    return out
+
+
+def model_all_gather(x: torch.Tensor, tp: Optional[TP],
+                     dim: int) -> torch.Tensor:
+    """The model ranks' shards concatenated along ``dim`` in rank order."""
+    if not model_active(tp):
+        return x
+    parts = model_stack(x, tp)
+    return torch.cat(list(parts.unbind(0)), dim=dim)

@@ -4,16 +4,20 @@ fingerprints.
 CLI:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --steps 20 [--reduced] [--device cpu] [--ckpt-dir /tmp/run1 --resume] \\
-      [--grad-mode repro_zero2] [--fingerprints /tmp/run1.json]
+      [--grad-mode repro_zero2] [--fingerprints /tmp/run1.json] \\
+      [--data D --model M [--pod P] | --production-mesh [--multi-pod]]
 
-Runs on the card unless ``--device cpu``.  Under ``torchrun`` (or any
-launcher that initialises a default process group before
-:func:`train_loop`) the world is the data-parallel axis; otherwise it is
-one process.  The loop runs under the failure supervisor: any step may
-raise, and the run resumes from the last checkpoint with a bitwise
-identical trajectory.  A checkpoint holds the parameters (as float32,
-exact for bfloat16) and the full-shape optimizer state, so a run resumes
-at any data-parallel width.
+Runs on the card unless ``--device cpu``.  Under ``torchrun`` (the
+``WORLD_SIZE``/``RANK`` variables; gloo on the CPU, NCCL on the card) or
+any launcher that initialises a default process group first, the world is
+laid out as the ``(pod, data, model)`` mesh of the flags
+(:func:`repro_torch.launch.mesh.make_mesh`; without flags, one data axis);
+otherwise it is one process.  The loop runs under the failure supervisor:
+any step may raise, and the run resumes from the last checkpoint with a
+bitwise identical trajectory.  A checkpoint holds the full-shape
+parameters (as float32, exact for bfloat16) and the full-shape optimizer
+state, gathered over the model and data axes, so a run resumes at any
+``(data, model)``; the fingerprints hash the same gathered trees.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import argparse
 import dataclasses
 import hashlib
 import logging
+import os
 import time
 from typing import Optional
 
@@ -33,7 +38,9 @@ from repro_torch import tree as tree_mod
 from repro_torch.checkpoint import ckpt as ckpt_mod
 from repro_torch.data.pipeline import DataConfig, synth_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch import shardings as sh
+from repro_torch.launch import specs as specs_mod
+from repro_torch.launch.mesh import Mesh, make_mesh, make_production_mesh
 from repro_torch.launch.train_step import (GRAD_MODES, TrainConfig,
                                            local_quanta, make_train_step)
 from repro_torch.models import lm
@@ -45,7 +52,8 @@ from repro_torch.optim import adamw as adamw_mod
 from repro_torch.runtime.failures import SimulatedFailure, run_supervised
 from repro_torch.runtime.stragglers import StragglerMonitor
 
-__all__ = ["RunState", "TrainResult", "build_batch", "train_loop", "main"]
+__all__ = ["RunState", "TrainResult", "build_batch", "train_loop",
+           "add_mesh_flags", "mesh_from_flags", "main"]
 
 log = logging.getLogger("repro_torch.train")
 
@@ -86,17 +94,11 @@ def build_batch(dcfg: DataConfig, model_cfg: ModelConfig, step: int,
     return out
 
 
-def _skeleton(ckpt_dir: str) -> dict:
-    """The tree structure of the latest checkpoint, from its manifest:
-    ``params`` and the optimizer state (an ``AdamWState``)."""
-    keys = [tuple(k.split(ckpt_mod.SEP))
-            for k in ckpt_mod.read_manifest(ckpt_dir)["arrays"]]
-    params = tree_mod.from_paths((k[1:], None) for k in keys
-                                 if k[0] == "params")
-    opt = [tree_mod.from_paths((k[2:], None) for k in keys
-                               if k[:2] == ("opt", str(i)))
-           for i in range(3)]
-    return {"params": params, "opt": adamw_mod.AdamWState(*opt, count=None)}
+def _skeleton(param_specs) -> dict:
+    """The tree structure of a checkpoint: ``params`` and the optimizer
+    state (an ``AdamWState``), keyed as the parameter specs."""
+    return {"params": param_specs, "opt": adamw_mod.AdamWState(
+        param_specs, param_specs, param_specs, count=None)}
 
 
 def _sync(dev: torch.device) -> None:
@@ -133,26 +135,37 @@ def train_loop(model_cfg: ModelConfig, shape: ShapeConfig,
     lo, hi = local_quanta(mesh, n_quanta)
     step_fn = make_train_step(model_cfg, train_cfg, mesh, shape, device=dev)
 
+    log.info("mesh %s: %.3f GB of parameters and %.3f GB of optimizer "
+             "state per rank", mesh.shape,
+             specs_mod.local_bytes(step_fn.specs) / 1e9,
+             specs_mod.local_bytes(specs_mod.opt_specs(
+                 model_cfg, mesh, zero=step_fn.zero)) / 1e9)
+
     def fresh() -> RunState:
-        params = lm.init_params(seed, model_cfg, dev)
+        params = sh.shard_params(lm.init_params(seed, model_cfg, dev),
+                                 step_fn.mesh, model_cfg)
         return RunState(params=params, opt=step_fn.init_opt(params), step=0)
 
     def restore() -> Optional[RunState]:
         if ckpt_mod.latest_step(ckpt_dir) is None:
             return None
-        tree, extra = ckpt_mod.restore(ckpt_dir, _skeleton(ckpt_dir),
-                                       device=dev)
-        params = tree_mod.tree_map(lambda t: t.to(model_cfg.pdtype),
-                                   tree["params"])
+        tree, extra = ckpt_mod.restore(ckpt_dir, _skeleton(step_fn.specs),
+                                       device="cpu")
+        params = tree_mod.tree_map(
+            lambda t: t.to(dev, model_cfg.pdtype),
+            sh.shard_params(tree["params"], step_fn.mesh, model_cfg))
+        opt = step_fn.local_opt(tree["opt"])
+        opt = opt._replace(**{k: tree_mod.tree_map(
+            lambda t: t.to(dev), getattr(opt, k))
+            for k in ("mu", "nu", "master")}, count=opt.count.to(dev))
         log.info("restored step %d from %s", extra["step"], ckpt_dir)
-        return RunState(params=params,
-                        opt=step_fn.local_opt(tree["opt"], params),
-                        step=int(extra["step"]))
+        return RunState(params=params, opt=opt, step=int(extra["step"]))
 
     losses, seconds = [], []
     fail_armed = [fail_at]
     final_state: dict = {}
     traj = hashlib.sha256(obs_fp.MAGIC + b"trajectory\0")
+    first = mesh.rank == 0 and mesh.model_rank == 0
     host = f"host{mesh.rank}"
     monitor = StragglerMonitor([host])
 
@@ -190,16 +203,30 @@ def train_loop(model_cfg: ModelConfig, shape: ShapeConfig,
         final_state["state"] = new_state
         return new_state
 
+    # the last checkpoint's gathered trees (the first rank's), which the
+    # fingerprints reuse when the run ends on that state
+    saved: dict = {}
+
+    def gathered(state: RunState):
+        """(params, opt) at full shape on the first rank (``None`` leaves
+        elsewhere); collectives on every rank."""
+        if saved.get("state") is state:
+            return saved["trees"]
+        saved.clear()
+        return (step_fn.full_params(state.params, keep=first),
+                step_fn.full_opt(state.opt, keep=first))
+
     def save(state: RunState, step: int):
         if not ckpt_dir:
             return
-        opt = step_fn.full_opt(state.opt, state.params)    # collective
-        if mesh.rank == 0:
+        params, opt = gathered(state)
+        saved.update(state=state, trees=(params, opt))
+        if first:
             ckpt_mod.save(ckpt_dir, step, {
                 "params": tree_mod.tree_map(lambda t: t.to(torch.float32),
-                                            state.params),
+                                            params),
                 "opt": opt}, extra={"step": step})
-        if mesh.groups:
+        if dist.is_available() and dist.is_initialized():
             dist.barrier()
 
     report = run_supervised(
@@ -207,12 +234,19 @@ def train_loop(model_cfg: ModelConfig, shape: ShapeConfig,
         one_step, save, total_steps=steps, ckpt_every=ckpt_every)
     fps = {}
     if "state" in final_state:
-        st = final_state["state"]
-        opt = step_fn.full_opt(st.opt, st.params)          # collective
-        fps = {"loss_trajectory": traj.hexdigest(),
-               "params": obs_fp.fingerprint_pytree(st.params),
-               "opt": obs_fp.fingerprint_pytree(opt)}
-        if fingerprint_path and mesh.rank == 0:
+        params, opt = gathered(final_state["state"])
+        saved.clear()
+        fps = {"loss_trajectory": traj.hexdigest()}
+        if first:
+            fps.update(params=obs_fp.fingerprint_pytree(params),
+                       opt=obs_fp.fingerprint_pytree(opt))
+        del opt, params
+        if dist.is_available() and dist.is_initialized():
+            # the gathered trees' digests, from the first rank to all
+            digests = [{k: fps.get(k) for k in ("params", "opt")}]
+            dist.broadcast_object_list(digests, src=0)
+            fps.update(digests[0])
+        if fingerprint_path and first:
             obs_fp.write_fingerprints(
                 fingerprint_path, fps,
                 manifest=obs_fp.run_manifest(extra={
@@ -226,10 +260,42 @@ def train_loop(model_cfg: ModelConfig, shape: ShapeConfig,
                        fingerprints=fps, restarts=report.restarts)
 
 
+def add_mesh_flags(ap: argparse.ArgumentParser, pod: bool) -> None:
+    """The JAX package's mesh flags."""
+    ap.add_argument("--data", type=int, default=None,
+                    help="data-parallel ranks (default: what the world "
+                         "leaves)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel ranks")
+    if pod:
+        ap.add_argument("--pod", type=int, default=0,
+                        help="pods (0: no pod axis)")
+        ap.add_argument("--production-mesh", action="store_true",
+                        help="(data=16, model=16): 256 ranks")
+        ap.add_argument("--multi-pod", action="store_true",
+                        help="with --production-mesh: (pod=2, data=16, "
+                             "model=16), 512 ranks")
+
+
+def mesh_from_flags(args, device=None) -> Mesh:
+    """The mesh the flags ask for.  A process started by ``torchrun``
+    (``WORLD_SIZE`` > 1) joins its process group first: gloo on the CPU,
+    NCCL on the card."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
+            not dist.is_initialized():
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    if getattr(args, "production_mesh", False):
+        return make_production_mesh(multi_pod=args.multi_pod)
+    return make_mesh(args.data, args.model, getattr(args, "pod", 0))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Train an LM of the dense families with reproducible "
-                    "gradient sums.")
+        description="Train an LM of any family with reproducible gradient "
+                    "sums.")
     ap.add_argument("--arch", required=True,
                     help="one of " + ", ".join(registry.list_archs()))
     ap.add_argument("--steps", type=int, default=100)
@@ -251,6 +317,7 @@ def main(argv=None):
     ap.add_argument("--fingerprints", default=None, metavar="PATH",
                     help="write the run's determinism fingerprints "
                          "(loss trajectory + final params/opt) to PATH")
+    add_mesh_flags(ap, pod=True)
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -258,6 +325,7 @@ def main(argv=None):
     cfg = registry.get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = mesh_from_flags(args, args.device)
     shape = ShapeConfig("cli", args.seq_len, args.global_batch, "train")
     tc = TrainConfig(grad_mode=args.grad_mode, mb_size=args.mb_size,
                      repro_embed=args.repro_embed,
@@ -265,14 +333,14 @@ def main(argv=None):
                          lr=args.lr, total_steps=args.steps,
                          warmup_steps=max(1, args.steps // 10)))
     t0 = time.time()
-    res = train_loop(cfg, shape, tc, steps=args.steps,
+    res = train_loop(cfg, shape, tc, mesh, steps=args.steps,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      resume=args.resume, seed=args.seed,
                      fail_at=args.fail_at,
                      fingerprint_path=args.fingerprints, device=args.device)
     dt = time.time() - t0
-    print(f"trained {len(res.losses)} steps in {dt:.1f}s; "
-          f"first loss {res.losses[0][1]:.4f} -> last "
+    print(f"trained {len(res.losses)} steps in {dt:.1f}s on mesh "
+          f"{mesh.shape}; first loss {res.losses[0][1]:.4f} -> last "
           f"{res.losses[-1][1]:.4f}")
     return 0
 

@@ -18,6 +18,14 @@ Three gradient paths, selectable per run:
 modes need a deterministic forward and backward: :func:`set_deterministic`
 (cuBLAS workspace, deterministic algorithms, cuDNN) is applied when the
 step is built for a CUDA device.
+
+On a mesh with a ``model`` axis each rank holds its model shard of the
+parameters (:func:`repro_torch.launch.shardings.shard_params`, the layout
+of :func:`repro_torch.launch.specs.param_specs`), so a sharded leaf's
+gradient is a local shard: the gradient reductions and ZeRO slices run
+over the data groups only, per model shard, as the JAX package's nested
+``shard_map`` over ``model`` does.  The global norm counts every element
+once across both axes.
 """
 from __future__ import annotations
 
@@ -33,11 +41,11 @@ from repro_torch.core import accumulator as acc_mod
 from repro_torch.core import collectives
 from repro_torch.core.types import ReproSpec
 from repro_torch.launch import shardings as sh
+from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.obs import trace as obs_trace
-from repro_torch.ops.partial import _sqrt_rn
 from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim import grad as grad_mod
 
@@ -86,7 +94,9 @@ def set_deterministic() -> None:
 
 def local_quanta(mesh: Mesh, n_quanta: int) -> tuple[int, int]:
     """The quanta [lo, hi) of a step that ``mesh``'s rank computes: a
-    contiguous 1/N share, as the JAX package's batch sharding gives."""
+    contiguous 1/N share over the data axes (the model ranks of one data
+    rank take the same quanta), as the JAX package's batch sharding
+    gives."""
     if n_quanta % mesh.size:
         raise ValueError(f"{n_quanta} quanta do not split over "
                          f"{mesh.size} ranks")
@@ -95,13 +105,16 @@ def local_quanta(mesh: Mesh, n_quanta: int) -> tuple[int, int]:
 
 
 def _all_gather(t: torch.Tensor, dim: int, groups) -> torch.Tensor:
-    """Concatenate every rank's ``t`` along ``dim`` (tiled all-gather)."""
+    """Concatenate every rank's ``t`` along ``dim`` (tiled all-gather),
+    contiguous: a parameter gathered along a later dim then has the
+    layout it has at data size 1 (cuBLAS may pick another kernel, and
+    round otherwise, for a transposed operand)."""
     for g in reversed(collectives._groups(groups)):
         size = dist.get_world_size(g)
         src = torch.movedim(t, dim, 0).contiguous()
         out = src.new_empty((src.shape[0] * size, *src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=g)
-        t = torch.movedim(out, 0, dim)
+        t = torch.movedim(out, 0, dim).contiguous()
     return t
 
 
@@ -109,8 +122,9 @@ class TrainStep:
     """``step(params, opt, batch) -> (params, opt, metrics)``.
 
     ``batch`` holds this rank's quanta: tensors of shape (n_local, mb, ...)
-    (:func:`local_quanta`).  ``params`` is the full parameter tree on every
-    rank; ``opt`` is :func:`init_opt`'s state (1/N slices in
+    (:func:`local_quanta`).  ``params`` is this rank's model shard of the
+    parameter tree (the full tree at model size 1); ``opt`` is
+    :func:`init_opt`'s state (1/N slices over the data axes in
     ``repro_zero2``).  ``metrics`` are the global means of the per-quantum
     loss and xent (reproducible in the repro modes) and the grad norm.
     """
@@ -127,6 +141,15 @@ class TrainStep:
         self.repro_embed = ReproSpec(torch.float32, L=train_cfg.repro_L) \
             if train_cfg.repro_embed else None
         self.zero = train_cfg.grad_mode == "repro_zero2"
+        self.specs = specs_mod.param_specs(model_cfg, mesh)
+        # per leaf: the dim carrying the ZeRO shard over the data axes,
+        # and the dim split over the model axis (None = held whole)
+        self.zdims = tree_mod.tree_map_with_path(
+            lambda path, s: sh.zero_dim(path, s.shape, mesh.size,
+                                        mesh.model_size, model_cfg),
+            self.specs)
+        self.mdims = tree_mod.tree_map(lambda s: sh.model_dim(s.pspec),
+                                       self.specs)
 
     # -- pieces ------------------------------------------------------------
 
@@ -141,7 +164,8 @@ class TrainStep:
                                    remat_policy=self.cfg.remat,
                                    repro_embed=self.repro_embed,
                                    xent_chunk=self.cfg.xent_chunk,
-                                   embed_chunk=self.cfg.embed_chunk)
+                                   embed_chunk=self.cfg.embed_chunk,
+                                   tp=self.mesh.tp)
             grads = torch.autograd.grad(loss, req, allow_unused=True)
         grads = [torch.zeros_like(r) if g is None else g
                  for g, r in zip(grads, req)]
@@ -149,50 +173,89 @@ class TrainStep:
             (path, g) for (path, _), g in zip(items, grads))
         return g_tree, {"loss": loss.detach(), "xent": aux["xent"].detach()}
 
-    def zero_dims(self, params):
-        """Per leaf: the tensor dim carrying the ZeRO shard (None =
-        replicated)."""
-        return tree_mod.tree_map_with_path(
-            lambda path, p: sh.zero_dim(path, p.shape, self.mesh.size),
-            params)
-
     def _slice(self, p: torch.Tensor, zdim):
         if zdim is None:
             return p
         nsh = p.shape[zdim] // self.mesh.size
         return p.narrow(zdim, self.mesh.rank * nsh, nsh)
 
-    def shard(self, tree, like):
-        """This rank's slices of a full-shape tree (``like``: the params)."""
-        return tree_mod.tree_map(self._slice, tree, self.zero_dims(like))
+    def shard(self, tree):
+        """This rank's ZeRO slices of a tree of model shards."""
+        return tree_mod.tree_map(self._slice, tree, self.zdims)
 
-    def gather(self, tree, like):
-        """Full-shape tree from every rank's slices."""
+    def gather(self, tree):
+        """The model shards from every data rank's ZeRO slices."""
         return tree_mod.tree_map(
             lambda t, z: t if z is None else _all_gather(
-                t, z, self.mesh.groups), tree, self.zero_dims(like))
+                t, z, self.mesh.groups), tree, self.zdims)
 
     def init_opt(self, params) -> adamw_mod.AdamWState:
         if self.zero:
-            params = self.shard(params, params)
+            params = self.shard(params)
         return adamw_mod.init(params)
 
-    def full_opt(self, opt, params) -> adamw_mod.AdamWState:
-        """The optimizer state at full shape (a collective in
-        ``repro_zero2``): what a checkpoint stores, width-independent."""
-        if not self.zero:
-            return opt
-        return opt._replace(mu=self.gather(opt.mu, params),
-                            nu=self.gather(opt.nu, params),
-                            master=self.gather(opt.master, params))
+    def _whole(self, t: torch.Tensor, zdim, mdim, keep: bool):
+        """One leaf whole: gathered over the data axes (``zdim``), then
+        over the model axis (``mdim``), then moved to the host (``None``
+        where not ``keep``: the rank takes part in the collectives only),
+        so the card holds one gathered leaf at a time."""
+        if zdim is not None:
+            t = _all_gather(t, zdim, self.mesh.groups)
+        t = sh.gather_leaf(t, mdim, self.mesh.tp)
+        return t.cpu() if keep else None
 
-    def local_opt(self, opt_full, params) -> adamw_mod.AdamWState:
-        """Inverse of :meth:`full_opt` (this rank's slices)."""
-        if not self.zero:
-            return opt_full
-        return opt_full._replace(mu=self.shard(opt_full.mu, params),
-                                 nu=self.shard(opt_full.nu, params),
-                                 master=self.shard(opt_full.master, params))
+    def _part(self, t: torch.Tensor, zdim, mdim) -> torch.Tensor:
+        """Inverse of :meth:`_whole` (on ``t``'s device)."""
+        return self._slice(sh.shard_leaf(t, mdim, self.mesh.tp), zdim)
+
+    def full_params(self, params, keep: bool = True):
+        """The full-shape parameters on the host (a collective over the
+        model axis; ``None`` leaves where not ``keep``).  Its inverse is
+        :func:`repro_torch.launch.shardings.shard_params`."""
+        return tree_mod.tree_map(lambda t, m: self._whole(t, None, m, keep),
+                                 params, self.mdims)
+
+    def full_opt(self, opt, keep: bool = True) -> adamw_mod.AdamWState:
+        """The optimizer state at full shape on the host (collectives over
+        the data axes in ``repro_zero2`` and over the model axis; ``None``
+        leaves where not ``keep``): what a checkpoint stores, independent
+        of the mesh."""
+        def full(tree):
+            return tree_mod.tree_map(
+                lambda t, z, m: self._whole(t, z if self.zero else None, m,
+                                            keep),
+                tree, self.zdims, self.mdims)
+        return opt._replace(mu=full(opt.mu), nu=full(opt.nu),
+                            master=full(opt.master))
+
+    def local_opt(self, opt_full) -> adamw_mod.AdamWState:
+        """Inverse of :meth:`full_opt` (this rank's slices, on the full
+        tree's device)."""
+        def local(tree):
+            return tree_mod.tree_map(
+                lambda t, z, m: self._part(t, z if self.zero else None, m),
+                tree, self.zdims, self.mdims)
+        return opt_full._replace(mu=local(opt_full.mu),
+                                 nu=local(opt_full.nu),
+                                 master=local(opt_full.master))
+
+    def _norm_weights(self, data_split: bool, device) -> list:
+        """Per leaf, ``None`` where this rank counts every entry it holds
+        in the global norm, else a 0/1 scalar: a leaf held whole over the
+        model axis counts on model rank 0; with ``data_split`` (ZeRO
+        slices), a leaf held whole over the data axes counts on data rank
+        0.  A mask, not a skipped leaf or a /N rescale, keeps the summed
+        values and the rsum launches the same at every width."""
+        out = []
+        for z, m in zip(tree_mod.leaves(self.zdims),
+                        tree_mod.leaves(self.mdims)):
+            whole_dp = data_split and z is None
+            whole_mp = m is None and self.mesh.model_size > 1
+            count = (not whole_dp or self.mesh.rank == 0) and \
+                (not whole_mp or self.mesh.model_rank == 0)
+            out.append(torch.tensor(float(count), device=device)
+                       if whole_dp or whole_mp else None)
+        return out
 
     def _metrics_reduce(self, m_local_sums):
         """Reproducible global mean of per-quantum metrics; the single
@@ -214,7 +277,9 @@ class TrainStep:
     def __call__(self, params, opt, batch):
         obs_trace.event("train.step_config", grad_mode=self.cfg.grad_mode,
                         n_quanta=self.n_quanta, mb_size=self.cfg.mb_size,
-                        dp_size=self.mesh.size, repro_L=self.cfg.repro_L,
+                        dp_size=self.mesh.size,
+                        model_size=self.mesh.model_size,
+                        repro_L=self.cfg.repro_L,
                         embed_chunk=self.cfg.embed_chunk)
         if self.zero:
             return self._zero2_step(params, opt, batch)
@@ -226,7 +291,11 @@ class TrainStep:
             grads = grad_mod.reduce_grads(accs, spec, self.mesh.groups,
                                           self.n_quanta,
                                           packed=self.cfg.packed_wire)
-            gnorm = grad_mod.repro_global_norm(grads, spec)
+            del accs                 # 16-20 bytes per element, not needed
+            gnorm = grad_mod.repro_global_norm(
+                grads, spec, self._norm_weights(
+                    False, tree_mod.leaves(grads)[0].device),
+                tp=self.mesh.tp)
         with obs_trace.span("optimizer_update"):
             new_params, new_opt = adamw_mod.update(
                 grads, opt, params, self.cfg.adamw, grad_norm=gnorm)
@@ -242,15 +311,17 @@ class TrainStep:
 
     def _zero2_step(self, params, opt, batch):
         spec = self.spec
-        zero = self.zero_dims(params)
+        zero = self.zdims
         shard_accs = msum = None
         n_local = next(iter(batch.values())).shape[0]
         with obs_trace.span("repro_zero2_accumulate_scatter"):
             for i in range(n_local):
                 g, m = self.grad_fn(params,
                                     {k: v[i] for k, v in batch.items()})
-                accs = tree_mod.tree_map(self._scatter_one,
-                                         grad_mod.tree_to_acc(g, spec), zero)
+                # leaf by leaf: one leaf's full-shape accumulator at a time
+                accs = tree_mod.tree_map(
+                    lambda x, z: self._scatter_one(
+                        grad_mod.tree_to_acc(x, spec), z), g, zero)
                 del g
                 if shard_accs is None:
                     shard_accs = tree_mod.tree_map(
@@ -265,34 +336,19 @@ class TrainStep:
                 lambda g: grad_mod.div_count(g, self.n_quanta),
                 grad_mod.acc_finalize_tree(shard_accs, spec))
             del shard_accs
-            gnorm = self._shard_global_norm(g_shards, zero)
-        p_shards = self.shard(params, params)
+            gnorm = grad_mod.repro_global_norm(
+                g_shards, spec, self._norm_weights(
+                    True, tree_mod.leaves(g_shards)[0].device),
+                self.mesh.groups, self.mesh.tp)
+        p_shards = self.shard(params)
         with obs_trace.span("optimizer_update"):
             new_p_shards, new_opt = adamw_mod.update(
                 g_shards, opt, p_shards, self.cfg.adamw, grad_norm=gnorm)
         with obs_trace.span("zero2_param_allgather"):
-            new_params = self.gather(new_p_shards, params)
+            new_params = self.gather(new_p_shards)
         metrics = self._metrics_reduce(msum)
         metrics["grad_norm"] = gnorm
         return new_params, new_opt, metrics
-
-    def _shard_global_norm(self, g_shards, zero):
-        """Norm over ZeRO shards.  Replicated (unsharded) leaves contribute
-        from rank 0 only — multiplying by an index mask keeps the summed
-        *values* independent of the width (a /N rescale would not)."""
-        spec = self.spec
-        leaves = tree_mod.leaves(g_shards)
-        acc = acc_mod.zeros(spec, device=leaves[0].device)
-        first = torch.tensor(float(self.mesh.rank == 0),
-                             device=leaves[0].device)
-        for g, z in zip(leaves, tree_mod.leaves(zero)):
-            sq = torch.square(g.to(torch.float32)).reshape(-1)
-            if z is None:
-                sq = sq * first          # replicated: count exactly once
-            acc = acc_mod.merge(acc, grad_mod.flat_sum_acc(
-                sq.to(spec.dtype), spec), spec)
-        acc = collectives.repro_psum(acc, spec, self.mesh.groups)
-        return _sqrt_rn(acc_mod.finalize(acc, spec))
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,

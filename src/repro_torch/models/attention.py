@@ -10,6 +10,13 @@ weighted values are taken in float32 from the compute-dtype inputs, as the
 reference's ``preferred_element_type=float32`` products.  The KV cache is
 a ring buffer over ``slots`` (= seq_len for full attention, = window for
 sliding windows).
+
+Under tensor parallelism the heads split over the model axis where the
+layout splits ``wq``/``wk``/``wv`` by columns and ``wo`` by rows
+(:func:`repro_torch.models.tp.attn_heads_split`, the port of the JAX
+package's ``attn_shard`` modes): each rank attends with its own query and
+KV heads and caches its own KV heads, and the ranks' ``wo`` products are
+summed in rank order.  Otherwise attention runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models import common
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["NEG_INF", "attn_init", "flash_attention", "KVCache",
@@ -42,16 +50,22 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, window: bool,
     return p
 
 
-def _project_qkv(x, p, cfg: ModelConfig, positions):
+def _project_qkv(x, p, cfg: ModelConfig, positions, tp=None):
+    """q, k, v of the heads ``p`` holds (all, or this rank's; ``tp``: the
+    model axis then, whose ranks' gradients of the whole ``q_norm`` and
+    ``k_norm`` scales are summed)."""
     B, S, D = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
+    H, KV = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     cd = cfg.cdtype
     q = (x @ p["wq"].to(cd)).reshape(B, S, H, hd)
     k = (x @ p["wk"].to(cd)).reshape(B, S, KV, hd)
     v = (x @ p["wv"].to(cd)).reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = common.rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = common.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = common.rmsnorm(q, {"scale": tp_mod.copy_to_model(
+            p["q_norm"]["scale"], tp)}, cfg.norm_eps)
+        k = common.rmsnorm(k, {"scale": tp_mod.copy_to_model(
+            p["k_norm"]["scale"], tp)}, cfg.norm_eps)
     if cfg.rope_kind == "rope":
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -117,8 +131,11 @@ class KVCache(NamedTuple):
     pos: torch.Tensor     # (B, slots) int32, -1 = empty
 
 
-def cache_init(batch, slots, cfg: ModelConfig, dtype=None, device=None):
-    KV, hd = cfg.n_kv_heads, cfg.hd
+def cache_init(batch, slots, cfg: ModelConfig, dtype=None, device=None,
+               kv_heads: Optional[int] = None):
+    """The cache of ``kv_heads`` KV heads (default all of them; under
+    tensor parallelism, the heads this rank's ``wk`` shard holds)."""
+    KV, hd = kv_heads or cfg.n_kv_heads, cfg.hd
     dt = dtype or cfg.cdtype
     return KVCache(
         k=torch.zeros((batch, slots, KV, hd), dtype=dt, device=device),
@@ -178,12 +195,15 @@ def decode_attention(q, cache: KVCache, q_pos, *, window: int = 0,
 
 
 def attention_block(x, p, cfg: ModelConfig, positions, *, window: int,
-                    cache: Optional[KVCache] = None):
+                    cache: Optional[KVCache] = None,
+                    tp: Optional[tp_mod.TP] = None):
     """Full attention sublayer.  In decode mode (cache given, S==1) the
     cache is updated and attended; otherwise chunked attention over x
     itself.  Returns (out, new_cache)."""
     B, S, D = x.shape
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    tp = tp_mod.split(tp, p["wq"].shape[-1], cfg.n_heads * cfg.hd)
+    x = tp_mod.copy_to_model(x, tp)
+    q, k, v = _project_qkv(x, p, cfg, positions, tp)
     if cache is not None and S == 1:
         pos = positions if positions.ndim == 1 else positions[:, 0]
         if cfg.rope_kind == "mrope":
@@ -199,5 +219,5 @@ def attention_block(x, p, cfg: ModelConfig, positions, *, window: int,
             cache = cache_fill(cache, k, v, qp)
         out = flash_attention(q, k, v, qp, qp, window=window,
                               softcap=cfg.softcap_attn)
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(cfg.cdtype), cache
+    out = out.reshape(B, S, q.shape[2] * cfg.hd)
+    return tp_mod.reduce_from_model(out @ p["wo"].to(cfg.cdtype), tp), cache

@@ -5,7 +5,11 @@ Functional style, as in the JAX package: ``*_init`` builds parameter trees
 Initializers draw from an explicit ``torch.Generator`` (on the CPU, so every
 process builds the same weights; a generator on the card draws there, which
 is what a model of billions of parameters wants) and move them to
-``device``.
+``device``; on the ``meta`` device they only give shapes and dtypes.
+
+Under tensor parallelism (:mod:`repro_torch.models.tp`) the embedding and
+the loss run over a vocabulary split in contiguous shards and the MLP is
+column/row parallel; a layer whose weights are whole runs as without it.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import accumulator as acc_mod
 from repro_torch.core import segment as segment_mod
 from repro_torch.core.types import ReproSpec
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
@@ -30,6 +35,8 @@ __all__ = ["dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
 # ---------------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, device) -> torch.Tensor:
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device).to(device)
 
@@ -112,14 +119,19 @@ def mlp_init(gen: torch.Generator, d, d_ff, dtype, device=None):
     }
 
 
-def mlp(x: torch.Tensor, params, act: str, compute_dtype) -> torch.Tensor:
+def mlp(x: torch.Tensor, params, act: str, compute_dtype,
+        tp: Optional[tp_mod.TP] = None) -> torch.Tensor:
+    """``tp``: the model axis when the weights are its column (``w_gate``,
+    ``w_up``) and row (``w_down``) shards: the partial products are summed
+    across it in rank order."""
     w_g = params["w_gate"].to(compute_dtype)
     w_u = params["w_up"].to(compute_dtype)
     w_d = params["w_down"].to(compute_dtype)
+    x = tp_mod.copy_to_model(x, tp)
     g = x @ w_g
     # jax.nn.gelu's default is the tanh approximation
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (g * (x @ w_u)) @ w_d
+    return tp_mod.reduce_from_model((g * (x @ w_u)) @ w_d, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +175,22 @@ class EmbedRepro(torch.autograd.Function):
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
                  repro_spec: Optional[ReproSpec] = None,
-                 chunk: int = 4096) -> torch.Tensor:
+                 chunk: int = 4096,
+                 tp: Optional[tp_mod.TP] = None) -> torch.Tensor:
+    """``table[ids]``.  ``tp``: the model axis when ``table`` is this
+    rank's contiguous vocabulary shard: each rank looks up the ids it
+    holds (zero rows elsewhere) and the rows are summed across the axis,
+    exactly, since one rank holds each id.  The zero rows add nothing to
+    the gradient's GROUPBY, which then runs over the shard's
+    ``vocab / model`` groups."""
+    if tp_mod.active(tp):
+        vl = table.shape[0]
+        local = ids - tp.rank * vl
+        held = (local >= 0) & (local < vl)
+        rows = embed_lookup(table, torch.where(held, local, 0), repro_spec,
+                            chunk)
+        rows = rows * held[..., None].to(rows.dtype)
+        return tp_mod.reduce_from_model(rows, tp)
     if repro_spec is None:
         return F.embedding(ids, table)
     return EmbedRepro.apply(table, ids, repro_spec, chunk)
@@ -173,30 +200,47 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
 # Chunked softmax cross-entropy
 # ---------------------------------------------------------------------------
 
-def _chunk_loss(h_c, t_c, table, cfg: ModelConfig):
+def _picked(logits, t_c, tp: Optional[tp_mod.TP]):
+    """The target's logit; over a vocabulary shard, the one rank holding
+    it gives it and the others zero, summed across the axis (exact)."""
+    if not tp_mod.active(tp):
+        return torch.gather(logits, -1, torch.clamp(t_c, min=0).to(
+            torch.int64)[..., None])[..., 0]
+    vl = logits.shape[-1]
+    local = t_c.to(torch.int64) - tp.rank * vl
+    held = (local >= 0) & (local < vl)
+    got = torch.gather(logits, -1, torch.where(held, local, 0)[..., None]
+                       )[..., 0]
+    return tp_mod.reduce_from_model(got * held.to(got.dtype), tp)
+
+
+def _chunk_loss(h_c, t_c, table, cfg: ModelConfig, tp=None):
     logits = (h_c.to(cfg.cdtype) @ table.T).to(torch.float32)
     if cfg.softcap_final:
         logits = softcap(logits, cfg.softcap_final)
     if cfg.logit_scale:
         logits = logits * cfg.logit_scale
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1,
-                          torch.clamp(t_c, min=0).to(torch.int64)[..., None]
-                          )[..., 0]
+    lse = tp_mod.vocab_logsumexp(logits, tp)
+    picked = _picked(logits, t_c, tp)
     mask = (t_c >= 0).to(torch.float32)
     return ((lse - picked) * mask).sum(), mask.sum()
 
 
 def chunked_xent(hidden: torch.Tensor, embed_table: torch.Tensor,
                  targets: torch.Tensor, cfg: ModelConfig,
-                 chunk: int = 512) -> torch.Tensor:
+                 chunk: int = 512,
+                 tp: Optional[tp_mod.TP] = None) -> torch.Tensor:
     """hidden: (B, S, D) -> mean xent against targets (B, S).
 
     Computes logits one sequence chunk at a time so the (B, S, V) logit
     tensor is never materialized; under autograd each chunk is recomputed
     in backward (``torch.utils.checkpoint``).  Chunk sums are added in
-    order, as the JAX package's scan does.
+    order, as the JAX package's scan does.  ``tp``: the model axis when
+    ``embed_table`` is this rank's vocabulary shard (the max and the sum
+    of exponentials are combined across it, :func:`~repro_torch.models.
+    tp.vocab_logsumexp`).
     """
+    hidden = tp_mod.copy_to_model(hidden, tp)
     B, S, D = hidden.shape
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -210,10 +254,10 @@ def chunked_xent(hidden: torch.Tensor, embed_table: torch.Tensor,
         h_c = hidden[:, i * chunk:(i + 1) * chunk]
         t_c = targets[:, i * chunk:(i + 1) * chunk]
         if torch.is_grad_enabled():
-            l, c = checkpoint(_chunk_loss, h_c, t_c, table, cfg,
+            l, c = checkpoint(_chunk_loss, h_c, t_c, table, cfg, tp,
                               use_reentrant=False)
         else:
-            l, c = _chunk_loss(h_c, t_c, table, cfg)
+            l, c = _chunk_loss(h_c, t_c, table, cfg, tp)
         tot, cnt = tot + l, cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -16,16 +16,23 @@ weights.  Two rules keep the integers the reference's:
   CUDA, and a different pick in the recomputed forward of a checkpointed
   unit would also corrupt the gradients;
 * the slot cumsum is done in int32.
+
+Under tensor parallelism the experts split over the model axis (E / M per
+rank, the layout's expert-parallel ``w_gate``/``w_up``/``w_down``).  The
+router, the gates and the dispatch run whole on every rank; each rank runs
+its own experts, the expert outputs are gathered across the axis, and the
+combine sums them as at model size 1.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["moe_init", "group_capacity", "top_k", "moe_block"]
@@ -57,9 +64,10 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(x, p, cfg: ModelConfig, group: int = 1024
-              ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, D) -> (out (B, S, D), aux-loss dict)."""
+def moe_block(x, p, cfg: ModelConfig, group: int = 1024,
+              tp: Optional[tp_mod.TP] = None) -> Tuple[torch.Tensor, dict]:
+    """x: (B, S, D) -> (out (B, S, D), aux-loss dict).  ``tp``: the model
+    axis, over which ``p``'s experts may be split."""
     B, S, D = x.shape
     mo = cfg.moe
     E, K = mo.num_experts, mo.top_k
@@ -101,14 +109,19 @@ def moe_block(x, p, cfg: ModelConfig, group: int = 1024
                            slot_oh)                             # (N,g,E,C)
     dispatch = (combine > 0).to(cd)
 
-    expert_in = torch.einsum("ngec,ngd->necd", dispatch,
-                             xg.to(cd))                         # (N,E,C,D)
+    # this rank's experts [lo, lo + El) (all of them unless split)
+    El = p["w_gate"].shape[0]
+    tp = tp_mod.split(tp, El, E)
+    lo = tp.rank * El if tp is not None else 0
+    expert_in = torch.einsum("ngec,ngd->necd", dispatch[:, :, lo:lo + El],
+                             tp_mod.copy_to_model(xg, tp).to(cd))  # N,El,C,D
     h_g = torch.einsum("necd,edf->necf", expert_in, p["w_gate"].to(cd))
     h_u = torch.einsum("necd,edf->necf", expert_in, p["w_up"].to(cd))
     act = F.silu(h_g) if cfg.act == "silu" else \
         F.gelu(h_g, approximate="tanh")
-    expert_out = torch.einsum("necf,efd->necd", act * h_u,
-                              p["w_down"].to(cd))               # (N,E,C,D)
+    expert_out = tp_mod.gather_from_model(torch.einsum(
+        "necf,efd->necd", act * h_u, p["w_down"].to(cd)), tp,
+        dim=1)                                                  # (N,E,C,D)
     out = torch.einsum("ngec,necd->ngd", combine.to(cd), expert_out)
 
     # auxiliary losses (float32; per group, then means)

@@ -8,6 +8,12 @@ Both are recurrent in time (a chunked scan for train/prefill, O(1)-state
 decode).  ``d_ff == 0`` in the xlstm config: blocks carry their own up/down
 projections instead of a separate FFN.  The inner recurrences run in
 float32 with stabilisers that start at -1e30.
+
+Under tensor parallelism the projections are column (``wq``, ``wk``,
+``wv``, ``w_gates``, ``w_zifo``, ``w_up``) and row (``wo``, ``w_down``)
+shards, as the JAX package lays them out; their outputs are gathered
+whole before the recurrences, which run replicated on every model rank as
+the reference pins them, so no collective runs per timestep.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import common
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.recurrence import chunked_time_scan
 
@@ -80,11 +87,12 @@ def _mlstm_step(state: MLSTMState, q, k, v, i_log, f_log):
     return MLSTMState(c=c, n=n, m=m_new), num / den[..., None]
 
 
-def _replicate_tp(*xs, cfg: ModelConfig):
-    """The JAX package pins the recurrent inner math replicated over the
-    tensor-parallel ``model`` axis (a sharding constraint).  The port has
-    no model axis yet (ROADMAP queue 1 item 17), so this is the identity."""
-    return xs
+def _replicate_tp(h, p, names, fulls, cd, tp):
+    """``h @ p[name]`` for each column-parallel projection, whole on every
+    model rank: the recurrent inner math runs replicated over the model
+    axis, as the JAX package's sharding constraint pins it."""
+    return tuple(tp_mod.column(h, p[name].to(cd), full, tp)
+                 for name, full in zip(names, fulls))
 
 
 def _mlstm_scan_step(st, xs):
@@ -92,18 +100,20 @@ def _mlstm_scan_step(st, xs):
 
 
 def mlstm_block(x, p, cfg: ModelConfig,
-                state: Optional[MLSTMState] = None):
+                state: Optional[MLSTMState] = None,
+                tp: Optional[tp_mod.TP] = None):
     B, S, D = x.shape
     H, hd = cfg.n_heads, cfg.hd
     cd = cfg.cdtype
     f32 = torch.float32
     h = common.rmsnorm(x, p["norm"], cfg.norm_eps)
-    q = (h @ p["wq"].to(cd)).reshape(B, S, H, hd).to(f32)
-    k = (h @ p["wk"].to(cd)).reshape(B, S, H, hd).to(f32)
+    q, k, v, gates = _replicate_tp(h, p, ("wq", "wk", "wv", "w_gates"),
+                                   (H * hd,) * 3 + (2 * H,), cd, tp)
+    q = q.reshape(B, S, H, hd).to(f32)
+    k = k.reshape(B, S, H, hd).to(f32)
     k = k * (hd ** -0.5)
-    v = (h @ p["wv"].to(cd)).reshape(B, S, H, hd).to(f32)
-    gates = (h @ p["w_gates"].to(cd)).reshape(B, S, 2, H)
-    q, k, v, gates = _replicate_tp(q, k, v, gates, cfg=cfg)
+    v = v.reshape(B, S, H, hd).to(f32)
+    gates = gates.reshape(B, S, 2, H)
     i_log = gates[:, :, 0].to(f32)
     f_log = F.logsigmoid(gates[:, :, 1].to(f32))
 
@@ -121,7 +131,8 @@ def mlstm_block(x, p, cfg: ModelConfig,
              i_log.transpose(0, 1), f_log.transpose(0, 1)))
         y = ys.transpose(0, 1)                             # (B, S, H, hd)
 
-    out = y.reshape(B, S, H * hd).to(cd) @ p["wo"].to(cd)
+    out = tp_mod.row(y.reshape(B, S, H * hd).to(cd), p["wo"].to(cd), H * hd,
+                     tp)
     return x + out, st
 
 
@@ -140,13 +151,14 @@ def _slstm_scan_step(st, xs):
 
 
 def slstm_block(x, p, cfg: ModelConfig,
-                state: Optional[SLSTMState] = None):
+                state: Optional[SLSTMState] = None,
+                tp: Optional[tp_mod.TP] = None):
     B, S, D = x.shape
     cd = cfg.cdtype
     f32 = torch.float32
     h = common.rmsnorm(x, p["norm"], cfg.norm_eps)
-    zifo = (h @ p["w_zifo"].to(cd)).reshape(B, S, 4, D)
-    (zifo,) = _replicate_tp(zifo, cfg=cfg)
+    (zifo,) = _replicate_tp(h, p, ("w_zifo",), (4 * D,), cd, tp)
+    zifo = zifo.reshape(B, S, 4, D)
     z = zifo[:, :, 0].to(f32)
     i_raw = zifo[:, :, 1].to(f32)
     f_raw = F.logsigmoid(zifo[:, :, 2].to(f32))
@@ -167,10 +179,11 @@ def slstm_block(x, p, cfg: ModelConfig,
         y = ys.transpose(0, 1)
 
     y = y.to(cd)
-    up = y @ p["w_up"].to(cd)
+    up = tp_mod.column(y, p["w_up"].to(cd), 4 * D, tp)
     a, b = torch.chunk(up, 2, dim=-1)
     # jax.nn.gelu's default is the tanh approximation
-    out = (F.gelu(a, approximate="tanh") * b) @ p["w_down"].to(cd)
+    out = tp_mod.row(F.gelu(a, approximate="tanh") * b, p["w_down"].to(cd),
+                     2 * D, tp)
     return x + out, st
 
 

@@ -67,7 +67,7 @@ def _update_array(h, name: str, arr) -> None:
     h.update(name.encode() + b"\0")
     h.update(dname.encode() + b"\0")
     h.update(np.int64([a.ndim, *a.shape]).astype("<i8").tobytes())
-    h.update(a.tobytes())
+    h.update(a)          # C-contiguous: its bytes, without a copy
 
 
 def _new(kind: str):

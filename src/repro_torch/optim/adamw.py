@@ -72,6 +72,12 @@ def schedule(cfg: AdamWConfig, count) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+# A leaf of more elements than this is updated in slices of it, one after
+# another (every step is elementwise, so the bits are those of one pass):
+# the temporaries, float64 ones among them (``_sqrt_rn``), stay this size.
+SLICE = 1 << 23
+
+
 def update(grads, state: AdamWState, params, cfg: AdamWConfig,
            grad_norm: Optional[torch.Tensor] = None):
     """Returns (new_params, new_state).  ``grad_norm`` (if given) is the
@@ -89,18 +95,32 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig,
     b1c = (1.0 - _f32(cfg.b1) ** c).to(dev)
     b2c = (1.0 - _f32(cfg.b2) ** c).to(dev)
 
-    def upd(p, g, m, v, w):
+    def upd(p, g, m, v, w, matrix: bool):
         g = g.to(torch.float32) * scale
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
         mh, vh = m / b1c, v / b2c
         step = mh / (_sqrt_rn(vh) + cfg.eps)
-        if p.ndim >= 2:                       # decoupled wd on matrices only
+        if matrix:                            # decoupled wd on matrices only
             step = step + cfg.weight_decay * w
         w = w - lr * step                     # f32 master update
         return w.to(p.dtype), m, v, w
 
-    out = tree_mod.tree_map(upd, params, grads, state.mu, state.nu,
+    def leaf(p, g, m, v, w):
+        """``upd`` of one leaf, in slices of :data:`SLICE` elements where
+        it is larger (elementwise: the same bits)."""
+        if p.numel() <= SLICE:
+            return upd(p, g, m, v, w, p.ndim >= 2)
+        outs = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                     for t in (p, m, v, w))
+        flat = [t.reshape(-1) for t in (p, g, m, v, w)]
+        for lo in range(0, p.numel(), SLICE):
+            part = upd(*(t[lo:lo + SLICE] for t in flat), p.ndim >= 2)
+            for o, r in zip(outs, part):
+                o.view(-1)[lo:lo + SLICE] = r
+        return outs
+
+    out = tree_mod.tree_map(leaf, params, grads, state.mu, state.nu,
                             state.master)
     pick = lambda i: tree_mod.tree_map(lambda t: t[i], out)  # noqa: E731
     return pick(0), AdamWState(mu=pick(1), nu=pick(2), master=pick(3),

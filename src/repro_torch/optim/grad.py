@@ -17,6 +17,7 @@ Everything here is elementwise over parameters.  ``groups`` is what
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -89,6 +90,49 @@ def metric_add(macc: Optional[ReproAcc], x: torch.Tensor,
     return acc_mod.merge(macc, a, spec)
 
 
+# Accumulator work on a gradient leaf of more elements than this runs in
+# slices of it, one after another: every step is elementwise (the lattice
+# exponent is the whole leaf's), so the bits are those of one pass, and a
+# leaf's temporaries stay this size however large the leaf (a 197 M-element
+# embedding shard would need ~10 GB of them in one pass).
+ACC_SLICE = 1 << 23
+
+
+def _acc_rows(acc: ReproAcc, lo: int, hi: int) -> ReproAcc:
+    """Elements [lo, hi) of an accumulator, flattened (a scalar lattice
+    exponent stays scalar)."""
+    L = acc.k.shape[-1]
+    e1 = acc.e1.reshape(-1)[lo:hi] if acc.e1.ndim else acc.e1
+    return ReproAcc(k=acc.k.reshape(-1, L)[lo:hi],
+                    C=acc.C.reshape(-1, L)[lo:hi], e1=e1)
+
+
+def _fold_leaf(acc: Optional[ReproAcc], g: torch.Tensor,
+               spec: ReproSpec) -> ReproAcc:
+    """``merge(acc or zeros, tree_to_acc(g))`` for one leaf, in slices of
+    :data:`ACC_SLICE` elements where the leaf is larger."""
+    if acc is None and g.numel() <= ACC_SLICE:
+        acc = acc_mod.zeros(spec, g.shape, device=g.device)
+    if g.numel() <= ACC_SLICE:
+        return acc_mod.merge(acc, tree_to_acc(g, spec), spec)
+    e1 = acc_mod.required_e1(g, spec)                 # the whole leaf's
+    x = g.to(spec.dtype).reshape(-1)
+    n = x.shape[0]
+    k = torch.empty((n, spec.L), dtype=spec.int_dtype, device=g.device)
+    C = torch.empty_like(k)
+    e1_out = torch.empty((n,), dtype=torch.int32, device=g.device)
+    for lo in range(0, n, ACC_SLICE):
+        hi = min(lo + ACC_SLICE, n)
+        kx = acc_mod.extract(x[lo:hi], e1, spec)
+        prev = acc_mod.zeros(spec, (hi - lo,), device=g.device) \
+            if acc is None else _acc_rows(acc, lo, hi)
+        part = acc_mod.merge(prev, ReproAcc(k=kx, C=torch.zeros_like(kx),
+                                            e1=e1), spec)
+        k[lo:hi], C[lo:hi], e1_out[lo:hi] = part.k, part.C, part.e1
+    return ReproAcc(k=k.reshape(*g.shape, spec.L),
+                    C=C.reshape(*g.shape, spec.L), e1=e1_out.reshape(g.shape))
+
+
 def accumulate_microbatches(grad_fn: Callable, params, microbatches,
                             spec: Optional[ReproSpec]):
     """Loop over microbatches; returns (grad_accs_or_grads, metric sums).
@@ -109,9 +153,9 @@ def accumulate_microbatches(grad_fn: Callable, params, microbatches,
             accs = tree_mod.tree_map(torch.add, accs, g)
             metrics = tree_mod.tree_map(torch.add, metrics, m)
             continue
-        ga = tree_to_acc(g, spec)
-        accs = acc_merge_tree(acc_zeros_like(g, spec) if accs is None
-                              else accs, ga, spec)
+        accs = tree_mod.tree_map(
+            lambda x, *a: _fold_leaf(a[0] if a else None, x, spec),
+            g, *(() if accs is None else (accs,)))
         metrics = {k: metric_add(None if metrics is None else metrics[k], v,
                                  spec) for k, v in m.items()}
     return accs, metrics
@@ -130,9 +174,23 @@ def reduce_grads(accs_or_grads, spec: Optional[ReproSpec], groups,
             lambda x: div_count(all_reduce_sum(x, groups), n_quanta_global),
             accs_or_grads)
     fn = collectives.repro_psum_packed if packed else collectives.repro_psum
-    accs = tree_mod.tree_map(lambda a: fn(a, spec, groups), accs_or_grads)
-    return tree_mod.tree_map(lambda x: div_count(x, n_quanta_global),
-                             acc_finalize_tree(accs, spec))
+
+    def reduce(a):
+        return div_count(acc_mod.finalize(fn(a, spec, groups), spec),
+                         n_quanta_global)
+
+    def one(a):
+        n = math.prod(a.k.shape[:-1])
+        if n <= ACC_SLICE:
+            return reduce(a)
+        out = torch.empty(a.k.shape[:-1], dtype=spec.dtype,
+                          device=a.k.device)
+        flat = out.reshape(-1)
+        for lo in range(0, n, ACC_SLICE):
+            hi = min(lo + ACC_SLICE, n)
+            flat[lo:hi] = reduce(_acc_rows(a, lo, hi))
+        return out
+    return tree_mod.tree_map(one, accs_or_grads)
 
 
 def flat_sum_acc(x: torch.Tensor, spec: ReproSpec) -> ReproAcc:
@@ -154,21 +212,40 @@ def flat_sum_acc(x: torch.Tensor, spec: ReproSpec) -> ReproAcc:
     return acc_mod.from_values(x, spec)
 
 
-def repro_global_norm(grads, spec: Optional[ReproSpec]):
+def repro_global_norm(grads, spec: Optional[ReproSpec], weights=None,
+                      groups=(), tp: Optional[collectives.TP] = None):
     """sqrt of a reproducible sum of squared gradient entries.
 
     Squares are deterministic per element; their sum uses the associative
     accumulator, one :func:`flat_sum_acc` per leaf in leaf order, so the
     clip decision is independent of process count and ordering.  The square
     root is correctly rounded on every device.
+
+    Over shards (ZeRO slices over ``groups``, model-axis shards over
+    ``tp``), ``weights`` gives per leaf ``None`` or a 0/1 float scalar the
+    squares are multiplied by, so that a leaf held whole on several ranks
+    counts on one of them; the ranks' sums are then added exactly over
+    ``groups`` and the model group (the float baseline adds over the model
+    axis in rank order).  Each element counts once, so the norm's bits do
+    not depend on how the leaves are split.
     """
     gl = tree_mod.leaves(grads)
+    ws = weights if weights is not None else [None] * len(gl)
+
+    def weighted(sq, w):
+        return sq if w is None else sq * w
+
     if spec is None:
-        total = sum(torch.sum(torch.square(g.to(torch.float32)))
-                    for g in gl)
-        return _sqrt_rn(total)
+        total = sum(weighted(torch.sum(torch.square(g.to(torch.float32))), w)
+                    for g, w in zip(gl, ws))
+        total = all_reduce_sum(total, groups) if groups else total
+        return _sqrt_rn(collectives.model_sum(total, tp))
     acc = acc_mod.zeros(spec, device=gl[0].device)
-    for g in gl:
-        sq = torch.square(g.to(spec.dtype)).reshape(-1)
+    for g, w in zip(gl, ws):
+        sq = weighted(torch.square(g.to(spec.dtype)).reshape(-1), w)
         acc = acc_mod.merge(acc, flat_sum_acc(sq, spec), spec)
+    if collectives.model_active(tp):
+        groups = tuple(groups) + (tp.group,)
+    if groups:
+        acc = collectives.repro_psum(acc, spec, groups)
     return _sqrt_rn(acc_mod.finalize(acc, spec))

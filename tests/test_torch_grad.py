@@ -324,3 +324,55 @@ def test_adamw_update_close_to_reference():
 
 if __name__ == "__main__":
     _torch_dist.main(_rank)
+
+
+@pytest.mark.parametrize("mode", ["accumulate", "reduce"])
+def test_accumulator_slices_change_no_bit(mode, monkeypatch):
+    """Large leaves fold and reduce in ``ACC_SLICE``-element slices; at a
+    slice of 37 elements (every leaf but the scalars sliced, ragged
+    tails) the accumulators and reduced gradients have the bytes and
+    shapes of one pass."""
+    spec = _spec()
+    trees = [_torch_tree(_grad_tree(20 + q)) for q in range(N_QUANTA)]
+    mbs = {"idx": torch.arange(N_QUANTA, dtype=torch.int32)}
+
+    def fn(_params, mb):
+        return trees[int(mb["idx"])], {"loss": torch.tensor(1.0)}
+
+    def run():
+        accs, _ = grad.accumulate_microbatches(fn, None, mbs, spec)
+        if mode == "accumulate":
+            return [t for a in tree_mod.leaves(accs) for t in a]
+        return tree_mod.leaves(grad.reduce_grads(accs, spec, (), N_QUANTA))
+
+    whole = run()
+    monkeypatch.setattr(grad, "ACC_SLICE", 37)
+    sliced = run()
+    assert max(t.numel() for t in whole) > 37
+    for a, b in zip(whole, sliced):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.numpy().tobytes() == b.numpy().tobytes()
+
+
+def test_adamw_slices_change_no_bit(monkeypatch):
+    """AdamW updates leaves larger than ``adamw.SLICE`` in slices; at a
+    slice of 7 elements (ragged tails) the parameters and state have the
+    bytes of one pass over two steps."""
+    cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=6)
+
+    def run():
+        params = _torch_tree(_adamw_tree(0))
+        state = adamw.init(params)
+        for step in range(2):
+            params, state = adamw.update(
+                _torch_tree(_adamw_tree(100 + step)), state, params, cfg)
+        return tree_mod.leaves(params) + [t for tree in state[:3]
+                                          for t in tree_mod.leaves(tree)]
+
+    whole = run()
+    monkeypatch.setattr(adamw, "SLICE", 7)
+    sliced = run()
+    assert max(t.numel() for t in whole) > 7
+    for a, b in zip(whole, sliced):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.numpy().tobytes() == b.numpy().tobytes()

@@ -42,3 +42,33 @@ def test_port_imports_no_jax_and_no_reference_module():
             "kernels", "stream", "runtime", "obs"} <= set(out[1].split(","))
     assert out[2] == "5"          # the MoE, SSM, xLSTM, scan and serving
     assert out[3:] == [], f"the port imported {out[3:]}"
+
+
+_BLOCKED = r"""
+import importlib, sys
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+for name in ("repro_torch.launch.specs", "repro_torch.models.tp",
+             "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+             "repro_torch.launch.train", "repro_torch.launch.serve"):
+    importlib.import_module(name)
+print("ok")
+"""
+
+
+def test_tensor_parallel_modules_import_with_jax_and_repro_blocked():
+    """The model axis, the specs and both entry points import with every
+    import of ``jax``, ``jaxlib`` and ``repro`` made to fail."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["ok"]
