@@ -124,6 +124,21 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
    Prints ms per step, model-axis collectives per step and peak memory per
    rank.
 
+14. dryrun: ``repro_torch.launch.dryrun``, the production-mesh dry run.
+   (a) In a process of its own started with the script (fake tensors need
+   the host's cores, not the card): the CLI on fake CUDA tensors for
+   smollm-135m x train_4k at 16x16 (256 ranks), smollm-135m x decode_32k
+   at 2x16x16 (512) and hymba-1.5b x prefill_32k at 16x16 (its 512 scan
+   chunks traced as 3), each record printed.  (b) Phase 10's cell
+   (smollm-135m, 4 layers, seq 1024, global batch 8 in quanta of 1,
+   ``repro_zero2``) and a llama3.2-3b decode step (batch 8, 272 cache
+   slots) at mesh (1, 1): one real step in an NCCL rank under the dry
+   run's counter, then the dry run on fake CUDA tensors; flops, bytes,
+   collective counts and bytes, kernel launches (and ``LAUNCHES``,
+   ``MODEL_COLLECTIVES``) must be equal, and the predicted arguments plus
+   temporaries within 10% of ``torch.cuda.max_memory_allocated()`` over
+   the step.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the per-kernel JSON summary.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -2141,7 +2156,229 @@ def tp_phase(name: str, limit: str, seed: int, device: str = "cuda",
     return rec
 
 
-def run(args) -> dict:
+# ---------------------------------------------------------------------------
+# phase 14: the dry run of the production meshes, held to the card
+# ---------------------------------------------------------------------------
+
+# (a): production-mesh cells traced on fake CUDA tensors through the CLI
+DRYRUN_CELLS = (("smollm-135m", "train_4k", False),
+                ("smollm-135m", "decode_32k", True),
+                ("hymba-1.5b", "prefill_32k", False))
+DRYRUN_LIMIT_S = 900.0
+# (b): cells dry-run and then run for real under the same counter
+HELD_JOBS = (dict(label="train", arch=TRAIN_ARCH, n_layers=TRAIN_LAYERS,
+                  kind="train", seq=1024, batch=8),
+             dict(label="decode", arch="llama3.2-3b", n_layers=None,
+                  kind="decode", seq=256 + 16, batch=8))
+HELD_KEYS = ("flops_total", "bytes_total", "collective_bytes",
+             "collective_counts", "model_collectives", "kernel_launches")
+MEMORY_RTOL = 0.10
+
+
+class DryRunCells:
+    """Phase 14(a) in a process of its own, started early: the dry run's
+    CLI (``python -m repro_torch.launch.dryrun``) for each cell of
+    ``DRYRUN_CELLS``, on fake tensors (it needs the host's cores, not the
+    card), into a temporary directory; :meth:`collect` waits for it."""
+
+    def __init__(self, device: str = "cuda", cells=DRYRUN_CELLS):
+        import os
+        import tempfile
+
+        self.tmp = tempfile.TemporaryDirectory()
+        argv = [["--arch", a, "--shape", s, "--device", device, "--out",
+                 str(Path(self.tmp.name, f"cell{i}.json"))]
+                + (["--multi-pod"] if mp else [])
+                for i, (a, s, mp) in enumerate(cells)]
+        self.n = len(argv)
+        code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+                f"sys.exit(max(dryrun.main(a) for a in {argv!r}))\n")
+        env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+        self.log = open(Path(self.tmp.name, "log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                     stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+
+    def collect(self) -> tuple[list, float]:
+        """The records, and the seconds from start to end."""
+        left = DRYRUN_LIMIT_S - (time.perf_counter() - self.t0)
+        try:
+            self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self.close()
+            raise SmokeFailure(f"dryrun: the production-mesh cells did not "
+                               f"finish in {DRYRUN_LIMIT_S} s")
+        seconds = time.perf_counter() - self.t0
+        if self.proc.returncode != 0:
+            self.log.flush()
+            print(Path(self.log.name).read_text()[-6000:], file=sys.stderr)
+            raise SmokeFailure("dryrun: a production-mesh cell failed")
+        recs = [json.loads(Path(self.tmp.name, f"cell{i}.json").read_text())[0]
+                for i in range(self.n)]
+        self.close()
+        return recs, seconds
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        self.tmp.cleanup()
+
+
+def _held_cell(job: dict):
+    """A job's config and shape; training runs the dry run's defaults
+    (``repro_zero2``, ``remat="dots"``, quanta of one sequence)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.config import ShapeConfig
+
+    cfg = configs.get_config(job["arch"])
+    if job["n_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=job["n_layers"])
+    return cfg, ShapeConfig(job["label"], job["seq"], job["batch"],
+                            job["kind"])
+
+
+@reports_errors
+def dryrun_rank(rank: int, world: int, store: str, out: str, backend: str,
+                device: str, seed: int, jobs: tuple) -> None:
+    """Phase 14(b) in one rank: each of ``jobs`` run for real on
+    ``device`` under the dry run's counter (peak card memory from a reset),
+    then, once the real group is gone, dry-run on fake tensors at mesh
+    (1, 1); writes both records."""
+    import datetime
+    import gc
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    from repro_torch.kernels.rsum import ops as R
+    from repro_torch.kernels.segment_rsum import ops as S
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    for job in jobs:
+        cfg, shape = _held_cell(job)
+        mesh = make_mesh()
+        fn, specs = dryrun.cell_step(cfg, shape, mesh, device=dev)
+        args = dryrun.real_inputs(cfg, shape, mesh, fn, specs, dev, seed)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        launches = (R.LAUNCHES, S.LAUNCHES, collectives.MODEL_COLLECTIVES)
+        t0 = time.perf_counter()
+        outputs, real = dryrun.count_call(fn, args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        real["step_s"] = time.perf_counter() - t0
+        real["max_memory_allocated"] = torch.cuda.max_memory_allocated() \
+            if dev.type == "cuda" else None
+        real["LAUNCHES"] = {"rsum": R.LAUNCHES - launches[0],
+                            "segment_rsum": S.LAUNCHES - launches[1]}
+        real["MODEL_COLLECTIVES"] = collectives.MODEL_COLLECTIVES \
+            - launches[2]
+        res[job["label"]] = {"real": real}
+        del fn, args, outputs
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    for job in jobs:
+        cfg, shape = _held_cell(job)
+        res[job["label"]]["dry"] = dryrun.trace(
+            cfg, shape, {"data": 1, "model": 1}, device=device)
+    dist.destroy_process_group()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def dryrun_phase(name: str, limit: str, seed: int, cells: DryRunCells,
+                 device: str = "cuda", jobs: tuple = HELD_JOBS) -> dict:
+    """Phase 14: (a) the production-mesh records of ``cells``; (b) each
+    of ``jobs``' dry run against its real step: flops, bytes, collectives
+    (and the model axis's against ``MODEL_COLLECTIVES``) and kernel
+    launches (and ``LAUNCHES``) equal, the predicted arguments plus
+    temporaries within ``MEMORY_RTOL`` of ``max_memory_allocated``."""
+    t_phase = time.perf_counter()
+    prod, prod_s = cells.collect()
+    for rec in prod:
+        check("error" not in rec and rec["flops_total"] > 0
+              and rec["memory"]["argument_bytes"] > 0,
+              f"dryrun: {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+              "gave no record")
+        print(f"dryrun {rec['arch']} x {rec['shape']} x {rec['mesh']}: "
+              f"{json.dumps(rec)}", flush=True)
+    check(prod[1]["n_devices"] == 512 and prod[0]["n_devices"] == 256,
+          "dryrun: the production meshes are not 256 and 512 ranks")
+    train = prod[0]
+    check(device != "cuda" or train["kernel_launches"]["rsum"] > 0,
+          "dryrun: the 16x16 train_4k trace launched no rsum kernel")
+    backend = "nccl" if device == "cuda" else "gloo"
+    held = spawn_ranks(dryrun_rank, 1, (backend, device, seed, jobs),
+                       600.0)[0]
+    out = {}
+    for label, rec in held.items():
+        real, dry = rec["real"], rec["dry"]
+        for key in HELD_KEYS:
+            check(real[key] == dry[key],
+                  f"dryrun {label}: {key} of the dry run {dry[key]} != the "
+                  f"card's {real[key]}")
+        check(real["LAUNCHES"] == dry["kernel_launches"],
+              f"dryrun {label}: launches {dry['kernel_launches']} != "
+              f"LAUNCHES {real['LAUNCHES']}")
+        check(real["MODEL_COLLECTIVES"] == dry["model_collectives"],
+              f"dryrun {label}: model collectives != MODEL_COLLECTIVES")
+        check(real["memory"]["argument_bytes"]
+              == dry["memory"]["argument_bytes"],
+              f"dryrun {label}: argument bytes differ")
+        predicted = dry["memory"]["argument_bytes"] \
+            + dry["memory"]["temp_bytes"]
+        measured = real["max_memory_allocated"]
+        if measured is not None:
+            check(abs(predicted - measured) <= MEMORY_RTOL * measured,
+                  f"dryrun {label}: predicted peak {predicted} bytes is not "
+                  f"within {MEMORY_RTOL:.0%} of max_memory_allocated "
+                  f"{measured}")
+        job = next(j for j in jobs if j["label"] == label)
+        out[label] = {
+            "cell": {k: v for k, v in job.items() if k != "label"},
+            "flops_total": dry["flops_total"],
+            "bytes_total": dry["bytes_total"],
+            "collective_counts": dry["collective_counts"],
+            "collective_bytes": dry["collective_bytes"],
+            "kernel_launches": dry["kernel_launches"],
+            "corrected": dry["corrected"],
+            "predicted_peak_bytes": predicted,
+            "max_memory_allocated": measured,
+            "predicted_over_measured": None if not measured
+            else predicted / measured,
+            "counted_temp_bytes_real": real["memory"]["temp_bytes"],
+            "dry_temp_bytes": dry["memory"]["temp_bytes"],
+            "argument_bytes": dry["memory"]["argument_bytes"],
+            "trace_s": dry["seconds"], "real_step_s": real["step_s"]}
+    emit(phase="dryrun", card=name, power_limit=limit,
+         production=[{k: r[k] for k in (
+             "arch", "shape", "mesh", "n_devices", "lower_s", "flops_total",
+             "bytes_total", "collective_bytes", "kernel_launches",
+             "corrected", "memory")} for r in prod],
+         production_wall_s=round(prod_s, 1), held=out,
+         seconds=round(time.perf_counter() - t_phase, 1))
+    return {"production": prod, "held": out}
+
+
+def run(args, cells: DryRunCells) -> dict:
     import tempfile
 
     import numpy as np
@@ -2493,6 +2730,9 @@ def run(args) -> dict:
     tp_kernels = tp["train"]["kernels"]
     tp_modes = tp["train"]["modes"]
 
+    # -- phase 14: the dry run of the production meshes ---------------------
+    dry = dryrun_phase(name, limit, args.seed, cells)
+
     kernels = [
         {"name": "segment_rsum", "route": "cuda",
          "path": S.launch_shape(n, 4, X.shape[1], nlev, 132).path,
@@ -2544,6 +2784,11 @@ def run(args) -> dict:
                         "rsum_launches_per_step"]}
              for arch, m in families["models"].items()},
          "serve_launches": served["kernel_launches"]["rsum"],
+         "dryrun": {
+             "train_4k_16x16_launches_per_step": dry["production"][0][
+                 "kernel_launches"]["rsum"],
+             "held_train_launches_per_step": dry["held"]["train"][
+                 "kernel_launches"]["rsum"]},
          "tp": {"leaves": tp["train"]["global_norm"]["leaves"],
                 "launches_per_step": {
                     k: m["rsum_launches_per_step"]
@@ -2580,11 +2825,14 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    cells = DryRunCells()          # phase 14(a) on the host's cores
     try:
-        summary = run(args)
+        summary = run(args, cells)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        cells.close()
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@
 
 On a CUDA tensor the hand-written kernel (``csrc/rsum.cu``) runs, or the
 call raises; on a CPU tensor :func:`rsum_levels_plain` computes the same
-function in plain PyTorch.  ``LAUNCHES`` counts kernel launches.
+function in plain PyTorch.  ``LAUNCHES`` counts kernel launches.  The
+launch is the operator ``repro_torch::rsum_levels``, with a fake
+implementation for traces on fake tensors.
 """
 from __future__ import annotations
 
@@ -142,23 +144,18 @@ def _workspace(x: torch.Tensor, stream: int, n: int) -> torch.Tensor:
     return ws
 
 
-def rsum_levels_kernel(x: torch.Tensor, A: torch.Tensor,
-                       inv_ulp: torch.Tensor, spec: ReproSpec):
-    """The CUDA kernel: same contract as :func:`rsum_levels_plain`.  The
-    kernel reduces across blocks and splits the sums canonically itself, in
-    one launch; ``k`` and ``C`` are the two halves of one int32 buffer."""
+@torch.library.custom_op("repro_torch::rsum_levels", mutates_args=(),
+                         device_types="cuda")
+def _rsum_launch(x: torch.Tensor, A: torch.Tensor, inv_ulp: torch.Tensor,
+                 m: int) -> torch.Tensor:
+    """One launch: the int32 (2, nlev, ncols) buffer, ``k`` then ``C``.
+    Registered as an operator so that a trace on fake tensors
+    (:mod:`repro_torch.launch.dryrun`) sees one op with its fake
+    implementation below; everything that needs the card (its SMs, the
+    stream, the workspace, the pointers) happens here."""
     global LAUNCHES
-    if spec.m > 30:
-        raise ValueError("the rsum kernel supports float32 accumulators")
-    _build.check_cuda("x, A and inv_ulp", (x, A, inv_ulp), torch.float32)
-    if x.ndim != 2 or A.ndim != 2 or A.shape != inv_ulp.shape \
-            or A.shape[1] != x.shape[1]:
-        raise ValueError("rsum kernel expects x (n, ncols) and A, inv_ulp "
-                         "(nlev, ncols)")
     n, ncols = x.shape
     nlev = A.shape[0]
-    if not 1 <= nlev <= 8 or ncols < 1:
-        raise ValueError(f"unsupported level/column count {nlev}/{ncols}")
     total = n * ncols
     blocks = _grid(x.get_device(), total, nlev, ncols)
     stream = _build.current_stream(x)
@@ -168,12 +165,36 @@ def rsum_levels_kernel(x: torch.Tensor, A: torch.Tensor,
     k_ptr = out.data_ptr()
     err = lib.rsum_launch(x.data_ptr(), A.data_ptr(), inv_ulp.data_ptr(),
                           ws.data_ptr(), k_ptr, k_ptr + 4 * nlev * ncols,
-                          total, ncols, nlev, spec.m, blocks, THREADS, stream)
+                          total, ncols, nlev, m, blocks, THREADS, stream)
     if err:
         raise RuntimeError("rsum kernel launch failed: "
                            + lib.rsum_error_string(err).decode())
     LAUNCHES += 1
-    return out.unbind(0)
+    return out
+
+
+@_rsum_launch.register_fake
+def _rsum_launch_fake(x, A, inv_ulp, m):
+    return x.new_empty((2, A.shape[0], x.shape[1]), dtype=torch.int32)
+
+
+def rsum_levels_kernel(x: torch.Tensor, A: torch.Tensor,
+                       inv_ulp: torch.Tensor, spec: ReproSpec):
+    """The CUDA kernel: same contract as :func:`rsum_levels_plain`.  The
+    kernel reduces across blocks and splits the sums canonically itself, in
+    one launch (the operator ``repro_torch::rsum_levels``); ``k`` and ``C``
+    are the two halves of one int32 buffer."""
+    if spec.m > 30:
+        raise ValueError("the rsum kernel supports float32 accumulators")
+    _build.check_cuda("x, A and inv_ulp", (x, A, inv_ulp), torch.float32)
+    if x.ndim != 2 or A.ndim != 2 or A.shape != inv_ulp.shape \
+            or A.shape[1] != x.shape[1]:
+        raise ValueError("rsum kernel expects x (n, ncols) and A, inv_ulp "
+                         "(nlev, ncols)")
+    nlev, ncols = A.shape
+    if not 1 <= nlev <= 8 or ncols < 1:
+        raise ValueError(f"unsupported level/column count {nlev}/{ncols}")
+    return torch.ops.repro_torch.rsum_levels(x, A, inv_ulp, spec.m).unbind(0)
 
 
 def rsum_levels(x: torch.Tensor, A: torch.Tensor, inv_ulp: torch.Tensor,

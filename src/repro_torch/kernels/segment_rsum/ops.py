@@ -7,7 +7,9 @@ in one streaming pass.  ``segment_rsum_kernel`` is the single-column API.
 On a CUDA tensor the hand-written kernel (``csrc/segment_rsum.cu``) runs,
 or the call raises; on a CPU tensor :func:`segment_levels_plain` computes
 the same function in plain PyTorch.  ``LAUNCHES`` counts kernel launches:
-two a call, the path's kernel and the slab reduction.
+two a call, the path's kernel and the slab reduction.  The call is the
+operator ``repro_torch::segment_levels``, with a fake implementation for
+traces on fake tensors.
 """
 from __future__ import annotations
 
@@ -184,14 +186,51 @@ def _card_shape(index: int, n: int, num_segments: int, ncols: int,
     return launch_shape(n, num_segments, ncols, nlev, sms, tile, per_sm)
 
 
+@torch.library.custom_op("repro_torch::segment_levels", mutates_args=(),
+                         device_types="cuda")
+def _segment_launch(x: torch.Tensor, ids: torch.Tensor, num_segments: int,
+                    A: torch.Tensor, inv_ulp: torch.Tensor, m: int,
+                    flush: int, tile: int | None) -> torch.Tensor:
+    """One call (two launches): the int32 (2, G, ncols, nlev) buffer,
+    ``k`` then ``C``.  Registered as an operator so that a trace on fake
+    tensors (:mod:`repro_torch.launch.dryrun`) sees one op with its fake
+    implementation below; everything that needs the card happens here."""
+    global LAUNCHES
+    n, ncols = x.shape
+    nlev = A.shape[0]
+    shape = _card_shape(x.get_device(), n, num_segments, ncols, nlev, tile)
+    ent = num_segments * ncols * nlev
+    part = x.new_empty(shape.slabs * ent, dtype=torch.int64)
+    out = x.new_empty((2, num_segments, ncols, nlev), dtype=torch.int32)
+    lib = _launcher()
+    k_ptr = out.data_ptr()
+    err = lib.segment_rsum_launch(
+        ids.data_ptr(), x.data_ptr(), A.data_ptr(), inv_ulp.data_ptr(),
+        part.data_ptr(), k_ptr, k_ptr + 4 * ent, n, ncols, nlev, m,
+        num_segments, PATHS.index(shape.path), shape.tile, shape.replicas,
+        shape.slabs, shape.rows_per_slab, flush, shape.threads,
+        shape.smem, _build.current_stream(x))
+    if err:
+        raise RuntimeError("segment kernel launch failed: "
+                           + lib.segment_rsum_error_string(err).decode())
+    LAUNCHES += 2              # the path's kernel and segment_finalize
+    return out
+
+
+@_segment_launch.register_fake
+def _segment_launch_fake(x, ids, num_segments, A, inv_ulp, m, flush, tile):
+    return x.new_empty((2, num_segments, x.shape[1], A.shape[0]),
+                       dtype=torch.int32)
+
+
 def segment_levels_kernel(x: torch.Tensor, ids: torch.Tensor,
                           num_segments: int, A: torch.Tensor,
                           inv_ulp: torch.Tensor, spec: ReproSpec,
                           tile: int | None = None):
     """The CUDA kernel: same contract as :func:`segment_levels_plain`.  The
-    kernel reduces across slabs and splits the sums canonically itself;
-    ``k`` and ``C`` are the two halves of one int32 buffer."""
-    global LAUNCHES
+    kernel reduces across slabs and splits the sums canonically itself
+    (the operator ``repro_torch::segment_levels``); ``k`` and ``C`` are the
+    two halves of one int32 buffer."""
     if spec.m > 30:
         raise ValueError("the segment kernel supports float32 accumulators")
     _build.check_cuda("x, A and inv_ulp", (x, A, inv_ulp), torch.float32)
@@ -200,29 +239,13 @@ def segment_levels_kernel(x: torch.Tensor, ids: torch.Tensor,
             or A.shape != inv_ulp.shape or A.shape[1] != x.shape[1]:
         raise ValueError("segment kernel expects x (n, ncols), ids (n,) and "
                          "A, inv_ulp (nlev, ncols)")
-    n, ncols = x.shape
-    nlev = A.shape[0]
+    nlev, ncols = A.shape
     if num_segments < 1 or ncols < 1 or not 1 <= nlev <= 8:
         raise ValueError("segment kernel needs G >= 1, ncols >= 1 and "
                          "1 <= nlev <= 8")
-    shape = _card_shape(x.get_device(), n, num_segments, ncols, nlev,
-                        None if tile is None else int(tile))
-    ent = num_segments * ncols * nlev
-    part = x.new_empty(shape.slabs * ent, dtype=torch.int64)
-    out = x.new_empty((2, num_segments, ncols, nlev), dtype=torch.int32)
-    lib = _launcher()
-    k_ptr = out.data_ptr()
-    err = lib.segment_rsum_launch(
-        ids.data_ptr(), x.data_ptr(), A.data_ptr(), inv_ulp.data_ptr(),
-        part.data_ptr(), k_ptr, k_ptr + 4 * ent, n, ncols, nlev, spec.m,
-        num_segments, PATHS.index(shape.path), shape.tile, shape.replicas,
-        shape.slabs, shape.rows_per_slab, flush_rows(spec), shape.threads,
-        shape.smem, _build.current_stream(x))
-    if err:
-        raise RuntimeError("segment kernel launch failed: "
-                           + lib.segment_rsum_error_string(err).decode())
-    LAUNCHES += 2              # the path's kernel and segment_finalize
-    return out.unbind(0)
+    return torch.ops.repro_torch.segment_levels(
+        x, ids, num_segments, A, inv_ulp, spec.m, flush_rows(spec),
+        None if tile is None else int(tile)).unbind(0)
 
 
 def segment_levels(x: torch.Tensor, ids: torch.Tensor, num_segments: int,

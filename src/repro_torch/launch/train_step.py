@@ -45,6 +45,7 @@ from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.obs import repeat
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim import grad as grad_mod
@@ -315,7 +316,7 @@ class TrainStep:
         shard_accs = msum = None
         n_local = next(iter(batch.values())).shape[0]
         with obs_trace.span("repro_zero2_accumulate_scatter"):
-            for i in range(n_local):
+            for i, _ in repeat.trips(n_local, "train.quanta"):
                 g, m = self.grad_fn(params,
                                     {k: v[i] for k, v in batch.items()})
                 # leaf by leaf: one leaf's full-shape accumulator at a time

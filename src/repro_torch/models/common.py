@@ -100,9 +100,12 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     the head dim's rotary pairs are split into per-component sections."""
     hd = x.shape[-1]
     freqs = _rope_freqs(hd, theta, x.device)               # (hd/2,)
-    comp = torch.repeat_interleave(
-        torch.arange(len(sections)), torch.tensor(sections))[: hd // 2]
-    pos = positions3.to(torch.float32)[:, comp.to(x.device), :]  # (B,hd/2,S)
+    # each rotary pair's component, built on the host from the config: a
+    # repeat_interleave over tensor counts has a data-dependent shape,
+    # which a trace on fake tensors (launch/dryrun.py) cannot follow
+    comp = torch.tensor([c for c, n in enumerate(sections)
+                         for _ in range(n)][: hd // 2], device=x.device)
+    pos = positions3.to(torch.float32)[:, comp, :]         # (B, hd/2, S)
     ang = torch.einsum("bfs,f->bsf", pos, freqs)           # (B, S, hd/2)
     return _rotate(x, ang)
 

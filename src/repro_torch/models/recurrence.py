@@ -12,11 +12,15 @@ autograd (``no_grad``, ``inference_mode``) the chunks run plainly.
 NamedTuple of tensors, ``xs`` a tensor or a tuple of tensors with a
 leading time axis, ``y_t`` a tensor or a tuple of tensors.  The ``ys``
 come back stacked on a leading time axis, as ``lax.scan`` stacks them.
+The chunks take their indices from :func:`repro_torch.obs.repeat.trips`,
+so that a dry run traces three of them.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.obs import repeat
 
 __all__ = ["TIME_CHUNK", "scan", "chunked_time_scan"]
 
@@ -71,8 +75,16 @@ def chunked_time_scan(step, state0, xs, chunk: int = TIME_CHUNK):
         return scan(step, state0, xs)
     remat = torch.is_grad_enabled()
     st, parts = state0, []
-    for lo in range(0, S - S % chunk, chunk):
-        xc = _slice(xs, lo, lo + chunk)
+    for i, reps in repeat.trips(S // chunk, "recurrence.chunks"):
+        if reps > 1:
+            # one chunk traced for reps (repro_torch.obs.repeat): stand-ins
+            # for the others' outputs and, under remat, for the carries
+            # their checkpoints keep until their backward (held before the
+            # slice, so that they outlive its gradient's addition too)
+            parts.extend(repeat.copies(parts[-1], reps - 1))
+            if remat:
+                st = repeat.hold(st, repeat.copies(st, reps - 1))
+        xc = _slice(xs, i * chunk, (i + 1) * chunk)
         if remat:
             st, ys = checkpoint(scan, step, st, xc, use_reentrant=False)
         else:

@@ -29,6 +29,7 @@ from repro_torch.core import collectives
 from repro_torch.core.accumulator import ReproAcc
 from repro_torch.core.types import ReproSpec
 from repro_torch.kernels.rsum.ops import rsum_table
+from repro_torch.obs import repeat
 from repro_torch.ops.partial import _sqrt_rn
 from repro_torch.ops.plan import plan_groupby
 
@@ -144,7 +145,7 @@ def accumulate_microbatches(grad_fn: Callable, params, microbatches,
     """
     n_micro = next(iter(microbatches.values())).shape[0]
     accs = metrics = None
-    for i in range(n_micro):
+    for i, _ in repeat.trips(n_micro, "train.quanta"):
         g, m = grad_fn(params, {k: v[i] for k, v in microbatches.items()})
         if spec is None:
             if accs is None:

@@ -435,3 +435,27 @@ def test_recurrent_quantum_gradient_twice_is_byte_identical(cuda, arch):
         m2["loss"].item()
     for (path, a), b in zip(tree_mod.paths(g1), tree_mod.leaves(g2)):
         assert torch.equal(a, b), path
+
+
+@pytest.mark.cuda
+def test_kernel_operators_fakes_match_their_launches(cuda):
+    """The dry run traces each kernel through its operator's fake
+    implementation: on fake CUDA tensors it gives the launch's shapes,
+    dtypes and device, and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    spec = ReproSpec()
+    x = torch.from_numpy(_values("wide", 5000, 3, seed=4)).to(cuda)
+    ids = torch.randint(0, 9, (5000,), dtype=torch.int32, device=cuda)
+    e1 = acc.required_e1(x, spec, axis=0)
+    A, iu = rsum_ops.ladder(e1, spec, (0, spec.L))
+    real = (rsum_ops.rsum_levels_kernel(x, A, iu, spec)
+            + seg_ops.segment_levels_kernel(x, ids, 9, A, iu, spec))
+    launches = (rsum_ops.LAUNCHES, seg_ops.LAUNCHES)
+    with FakeTensorMode() as mode:
+        fx, fids, fA, fiu = (mode.from_tensor(t) for t in (x, ids, A, iu))
+        fake = (rsum_ops.rsum_levels_kernel(fx, fA, fiu, spec)
+                + seg_ops.segment_levels_kernel(fx, fids, 9, fA, fiu, spec))
+    assert [(t.shape, t.dtype, t.device) for t in fake] == \
+        [(t.shape, t.dtype, t.device) for t in real]
+    assert (rsum_ops.LAUNCHES, seg_ops.LAUNCHES) == launches

@@ -72,3 +72,34 @@ def test_tensor_parallel_modules_import_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split() == ["ok"]
+
+
+_DRYRUN = r"""
+import importlib, os, sys
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+env = dict(os.environ)
+import torch.distributed as dist
+for name in ("repro_torch.launch.dryrun", "repro_torch.obs.repeat"):
+    importlib.import_module(name)
+print(dist.is_initialized(), dict(os.environ) == env)
+"""
+
+
+def test_dry_run_imports_with_jax_blocked_and_starts_nothing():
+    """The dry run imports with ``jax``, ``jaxlib`` and ``repro`` blocked;
+    importing it starts no process group and sets no environment
+    variable (the JAX package's sets ``XLA_FLAGS``)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _DRYRUN], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split() == ["False", "True"]
