@@ -25,9 +25,16 @@ Phases, each of which fails loudly (a mismatch exits non-zero):
 5. CUDA-event times (medians) of each kernel (per launch over a run of
    launches, and for one call with its host work), its plain version, the
    one PyTorch call that computes the same function (timed in turns with
-   the rsum kernel), the segment kernel's tiled path at Q18's 15,000,000
-   groups and at Q9's ``GROUP BY nation, o_year`` (175 groups over SF10's
-   lineitem rows of green parts, in lineitem order and sorted by group),
+   the rsum kernel), the segment kernel's tiled path over several group
+   tiles (``multi_tile``: partition, then aggregate) at Q18's 15,000,000
+   groups in l_orderkey order and permuted, at the smollm-135m embedding
+   gradient (1,024 x 576, G = 49,152) and at the llama3.2-3b vocabulary
+   shard (256 x 3,072, G = 64,128), each bit for bit against its plain
+   version and its partition against ``partition_plain``, with the
+   partition's and the aggregate's ms, ``index_add_`` into the same G and
+   the bound; the tiled path in one group tile at Q9's ``GROUP BY nation,
+   o_year`` (175 groups over SF10's lineitem rows of green parts, in
+   lineitem order and sorted by group),
    the end-to-end ``groupby_agg`` and the conventional
    float32 ``index_add_`` GROUPBY of the same columns — the
    non-reproducible yardstick — and one profiled Q1 call: device time per
@@ -469,6 +476,71 @@ def profile_q1(torch, fn, e2e_ms: float, card: str, limit: str) -> None:
     rec["e2e_ms"] = rec.pop("wall_ms")
     rec.pop("kernel_launches")
     emit(phase="profile_q1", card=card, power_limit=limit, **rec)
+
+
+# the segment kernel over several group tiles at the shapes that reach it:
+# Q18's inner GROUP BY at SF10 (its rows in l_orderkey order, as dbgen
+# writes lineitem, and permuted), the smollm-135m embedding gradient
+# (1,024 tokens x 576, a 49,152-entry vocabulary) and the llama3.2-3b
+# vocabulary shard at model 2 (256 x 3,072, 64,128 entries)
+EMBED_SHAPE = (1024, 49_152, 576)
+SHARD_SHAPE = (256, 64_128, 3072)
+
+
+def multi_tile_case(torch, S, R, acc, spec, x, ids, G: int) -> dict:
+    """The segment kernel's tiled path over several group tiles at one
+    shape: bit for bit against its plain version (and the partition's
+    counts, offsets and work list against ``partition_plain``), launches
+    per call, device ms per call and of the partition and the aggregate
+    alone, the plain version's ms, ``index_add_`` of the float32 rows into
+    G, and the bound (rows read once, the int32 table written once)."""
+    n, ncols = x.shape
+    e1 = acc.required_e1(x, spec, axis=0)
+    A, iu = R.ladder(e1, spec, (0, spec.L))
+    nlev = A.shape[0]
+    before = S.LAUNCHES
+    got = S.segment_levels_kernel(x, ids, G, A, iu, spec)
+    launches = S.LAUNCHES - before
+    want = S.segment_levels_plain(x, ids, G, A, iu, spec)
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              for a, b in zip(got, want))
+    check(err == 0, f"segment kernel != plain over {G} groups x {ncols}")
+    del got, want
+    b = S.partition_kernel(x, ids, G, nlev)
+    tabs, in_order = S.head_tables(b)
+    plain = S.partition_plain(ids, G, b.shape.tile, b.shape.chunk_rows)
+    for name in ("counts", "offsets", "work_offsets", "hot_offsets"):
+        check(torch.equal(getattr(tabs, name), getattr(plain, name)),
+              f"partition {name} != partition_plain over {G} groups")
+    del plain
+    table = torch.zeros((G, ncols), dtype=torch.float32, device=x.device)
+    lids = ids.to(torch.int64)
+    nbytes = 4 * n + 4 * n * ncols + 2 * 4 * G * ncols * nlev
+    ops = 5 * n * ncols * nlev
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+    rec = {
+        "n": n, "G": G, "ncols": ncols, "path": b.shape.path,
+        "tiles": b.shape.tiles, "tile": b.shape.tile,
+        "rows_in_tile_order": in_order, "launches_per_call": launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: S.segment_levels_kernel(
+            x, ids, G, A, iu, spec), reps=5, batch=5),
+        "partition_ms": cuda_ms(torch, lambda: S.partition_kernel(
+            x, ids, G, nlev), reps=5, batch=5),
+        "aggregate_ms": cuda_ms(torch, lambda: S.aggregate_kernel(
+            b, x, ids, G, A, iu, spec), reps=5, batch=5),
+        "plain_ms": cuda_ms(torch, lambda: S.segment_levels_plain(
+            x, ids, G, A, iu, spec), reps=2),
+        "index_add_f32_ms": cuda_ms(torch, lambda: table.index_add_(
+            0, lids, x), reps=5, batch=5),
+        "bound_ms": bound * 1e3,
+        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops
+        / F32_OPS_PER_S else "operations"}
+    again = S.aggregate_kernel(b, x, ids, G, A, iu, spec)
+    want = S.segment_levels_plain(x, ids, G, A, iu, spec)
+    check(all(torch.equal(u, v) for u, v in zip(again, want)),
+          f"aggregate rerun != plain over {G} groups")
+    return rec
 
 
 def same_results(a: dict, b: dict) -> bool:
@@ -2569,14 +2641,35 @@ def run(args, cells: DryRunCells) -> dict:
                                                flat_library, 1)
     rsum_plain_ms = cuda_ms(torch, lambda: R.rsum_levels_plain(
         XF, Af, iuf, spec), reps=3)
-    # the tiled path at Q18's 15,000,000 groups (not the planner's choice)
-    e1q = acc.required_e1(qv, spec, axis=0)
-    Aq, iuq = R.ladder(e1q, spec, lv)
-    q18_path = S.launch_shape(qv.shape[0], SF10_ORDERS, 1, Aq.shape[0],
-                              132).path
-    seg_q18_ms = cuda_ms(torch, lambda: S.segment_levels_kernel(
-        qv, qk, SF10_ORDERS, Aq, iuq, spec), reps=3)
-    seg_q18_bytes = 8 * qv.shape[0] + 8 * SF10_ORDERS * Aq.shape[0]
+    # the tiled path over several group tiles (partition, then aggregate):
+    # Q18's 15,000,000 groups in l_orderkey order and permuted, the
+    # embedding gradient and the vocabulary shard
+    gen.manual_seed(args.seed + 3)
+    perm18 = torch.randperm(qk.shape[0], generator=gen, device=dev)
+    gen.manual_seed(args.seed + 6)
+    wide = {}
+    for label, (rows, g, d) in (("embed_grad", EMBED_SHAPE),
+                                ("vocab_shard", SHARD_SHAPE)):
+        wide[label] = (torch.randn((rows, d), generator=gen, device=dev)
+                       * 1e-3, torch.randint(0, g, (rows,), generator=gen,
+                                             device=dev, dtype=torch.int32),
+                       g)
+    multi_tiles = {"q18_sorted": multi_tile_case(
+        torch, S, R, acc, spec, qv, qk, SF10_ORDERS)}
+    multi_tiles["q18_permuted"] = multi_tile_case(
+        torch, S, R, acc, spec, qv[perm18].contiguous(), qk[perm18],
+        SF10_ORDERS)
+    for label, (wx, wids, g) in wide.items():
+        multi_tiles[label] = multi_tile_case(torch, S, R, acc, spec, wx,
+                                             wids, g)
+    del perm18, wide
+    check(multi_tiles["q18_sorted"]["rows_in_tile_order"]
+          and not multi_tiles["q18_permuted"]["rows_in_tile_order"],
+          "Q18's order was not detected on the card")
+    emit(phase="multi_tile", card=name, power_limit=limit, **multi_tiles)
+    q18_path = multi_tiles["q18_sorted"]["path"]
+    seg_q18_ms = multi_tiles["q18_sorted"]["ms"]
+    seg_q18_bound = multi_tiles["q18_sorted"]["bound_ms"]
     # the tiled path in one group tile at Q9's GROUP BY nation, o_year
     # (175 groups) over SF10's green rows: in lineitem order, and sorted by
     # group (a clustered input: whole warps on one group)
@@ -2624,7 +2717,7 @@ def run(args, cells: DryRunCells) -> dict:
          rsum_plain_ms=rsum_plain_ms, flat_sum_f32_ms=flat_lib_ms,
          flat_sum_f32_call_ms=flat_lib_call_ms,
          segment_q18_path=q18_path, segment_q18_kernel_ms=seg_q18_ms,
-         segment_q18_bound_ms=seg_q18_bytes / HBM_BYTES_PER_S * 1e3,
+         segment_q18_bound_ms=seg_q18_bound,
          segment_q9_path=q9_path, segment_q9_rows=n9,
          segment_q9_kernel_ms=seg_q9_ms,
          segment_q9_sorted_kernel_ms=seg_q9_sorted_ms,
@@ -2738,7 +2831,11 @@ def run(args, cells: DryRunCells) -> dict:
          "path": S.launch_shape(n, 4, X.shape[1], nlev, 132).path,
          "source": "src/repro_torch/kernels/segment_rsum/csrc/segment_rsum.cu",
          "replaces": "src/repro/kernels/segment_rsum/kernel.py:52",
-         "launches": seg_launches, "max_abs_err": max(max_err, seg_err),
+         "launches": seg_launches,
+         "max_abs_err": max(
+             [max_err, seg_err]
+             + [m["max_abs_err"] for m in multi_tiles.values()]),
+         "multi_tile": multi_tiles,
          "stream_launches": streamed["segment_launches"],
          "stream_batches": streamed["batches"],
          "train": {"shape": [tr_embed["rows"], tr_embed["G"],

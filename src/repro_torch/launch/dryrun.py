@@ -68,6 +68,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 from repro_torch import configs as registry
 from repro_torch import tree as tree_mod
 from repro_torch.core import collectives
+from repro_torch.kernels.segment_rsum import ops as seg_ops
 from repro_torch.launch import shardings as sh
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import (MULTI_POD_SHAPE, PRODUCTION_SHAPE,
@@ -106,8 +107,16 @@ _COLLECTIVES = {
     "broadcast_": ("broadcast", 0),
     "alltoall_": ("all-to-all", 1), "alltoall_base_": ("all-to-all", 1),
 }
-# kernel operator -> (kernel, launches per call)
-_KERNELS = {"rsum_levels": ("rsum", 1), "segment_levels": ("segment_rsum", 2)}
+
+
+def _segment_launches(x, ids, num_segments, A, inv_ulp, m, flush,
+                      tile=None) -> int:
+    return seg_ops.launch_count(num_segments, x.shape[1], A.shape[0], tile)
+
+
+# kernel operator -> (kernel, launches of one call given its arguments)
+_KERNELS = {"rsum_levels": ("rsum", lambda *args: 1),
+            "segment_levels": ("segment_rsum", _segment_launches)}
 
 
 def _tensors(x) -> list:
@@ -196,7 +205,7 @@ class Counter(TorchDispatchMode):
                                            - before)
         if ns == "repro_torch" and func._opname in _KERNELS:
             name, per = _KERNELS[func._opname]
-            self.launches[name] += per * f
+            self.launches[name] += per(*args, **kwargs) * f
         if ns != "c10d" and not func.is_view \
                 and func not in _NO_TRAFFIC:
             self.bytes += f * (_nbytes((args, kwargs)) + _nbytes(out))

@@ -44,7 +44,8 @@ from repro_torch.core.aggregates import (DEFAULT_CACHE_BYTES, segment_table,
                                          table_bytes)
 from repro_torch.core.types import ReproSpec, dtype_name
 from repro_torch.device import resolve_device
-from repro_torch.kernels.segment_rsum.ops import group_limits, group_tile
+from repro_torch.kernels.segment_rsum.ops import (PARTITION_PASSES,
+                                                  launch_shape)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -355,11 +356,12 @@ def for_planner(spec: ReproSpec, backend: str) -> Calibration | None:
 COLD_METHODS = ("scatter", "sort", "onehot", "pallas", "rsum")
 
 
-def _group_tiles(num_segments: int, ncols: int, nlev: int) -> int:
-    """Group tiles of one segment kernel launch (1 on the private path)."""
-    if num_segments <= group_limits(ncols, nlev)[0]:
-        return 1
-    return -(-num_segments // group_tile(num_segments, ncols, nlev))
+def _row_passes(num_segments: int, ncols: int, nlev: int) -> int:
+    """Passes of one segment kernel launch over the rows: 1 on the private
+    path and in one group tile, ``PARTITION_PASSES`` over several (the
+    partition's count and scatter, then the aggregate), whatever G."""
+    tiles = launch_shape(1, num_segments, ncols, nlev, 1).tiles
+    return PARTITION_PASSES if tiles > 1 else 1
 
 
 def cold_features(method: str, num_segments: int, ncols: int,
@@ -371,7 +373,7 @@ def cold_features(method: str, num_segments: int, ncols: int,
     pay both again for int64 atomics that contend on few groups, a part
     that falls as ``G ** -1/4``; onehot pays per group and row (building
     the one-hot, whatever the columns); the segment kernel pays once per
-    group tile (one tile on its private path)."""
+    pass over the rows (one on its private path and in one group tile)."""
     w = float(max(int(ncols), 1) * nlev)
     if method in ("scatter", "sort"):
         q = float(num_segments) ** -0.25
@@ -379,7 +381,7 @@ def cold_features(method: str, num_segments: int, ncols: int,
     if method == "onehot":
         return (1.0, w, float(num_segments))
     if method == "pallas":
-        t = float(_group_tiles(num_segments, ncols, nlev))
+        t = float(_row_passes(num_segments, ncols, nlev))
         return (t, t * w)
     return (1.0, w)
 

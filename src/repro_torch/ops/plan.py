@@ -31,6 +31,7 @@ from repro_torch.core.aggregates import (  # noqa: F401  (re-exports)
 from repro_torch.core.prescan import window_length
 from repro_torch.core.types import ReproSpec
 from repro_torch.kernels.rsum.ops import max_block_rows
+from repro_torch.kernels.segment_rsum.ops import takes_rows
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.ops import calibrate as cal_mod
@@ -56,15 +57,16 @@ _CACHE_BYTES = DEFAULT_CACHE_BYTES
 # H100 cold-start model: each strategy's constants for the features of
 # calibrate.cold_features, in ns per row, fitted by calibrate.fit_cold_model
 # to the quick grid (2^26 rows) that chip_smoke.py's calibration phase
-# measured on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, torch
-# 2.11.0+cu128 (the points and the fit's residuals are in PERF.md §6).
-# Scatter's spill factor is the JAX package's, not measured on the card.
+# measured on 2026-10-18 on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit, torch 2.11.0+cu128, with the segment kernel's pass count over the
+# rows as its feature (the points are in PERF.md §6).  Scatter's spill
+# factor is the JAX package's, not measured on the card.
 _CUDA_COLD = {
-    "scatter": (0.004945, 0.01462, 0.5281, 0.1058),
-    "sort": (0.02468, 0.01228, 0.6678, 0.08849),
-    "onehot": (0.001483, 0.03324, 0.01992),
-    "pallas": (0.007538, 0.002272),
-    "rsum": (0.004196, 0.002275),
+    "scatter": (0.07874, 0.006296, 0.4897, 0.1138),
+    "sort": (0.05317, 0.008727, 0.5507, 0.1028),
+    "onehot": (0.003634, 0.03317, 0.02008),
+    "pallas": (0.01005, 0.002081),
+    "rsum": (0.00943, 0.001695),
 }
 
 
@@ -200,8 +202,10 @@ def plan_groupby(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
         cal = (cal_mod.for_planner(spec, backend)
                if calibration == "auto" else calibration)
 
+    nlev = window_length(levels, spec)
     candidates = ["onehot", "scatter", "sort"]
-    if backend == "cuda" and spec.m <= 30:
+    if backend == "cuda" and spec.m <= 30 \
+            and takes_rows(n, num_segments, ncols, nlev):
         candidates.append("pallas")
     if num_segments == 1 and spec.m <= 30:
         # the flat-sum kernel: only valid with a single group
@@ -220,7 +224,6 @@ def plan_groupby(n: int, num_segments: int, spec: ReproSpec, ncols: int = 1,
             source = "measured"
         else:
             costs = None
-    nlev = window_length(levels, spec)
     tb = table_bytes(num_segments, ncols, spec, levels)
     in_cache = tb <= _CACHE_BYTES
     if costs is None:

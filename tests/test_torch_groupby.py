@@ -204,7 +204,7 @@ def test_planner_offers_the_kernels_on_cuda():
     spec = ReproSpec()
     assert plan_groupby(59_986_052, 4, spec, ncols=6).method == "pallas"
     assert plan_groupby(59_986_052, 1, spec, ncols=5).method == "rsum"
-    assert plan_groupby(60_000_000, 15_000_000, spec).method != "pallas"
+    assert plan_groupby(60_000_000, 15_000_000, spec).method == "pallas"
     f64 = ReproSpec(dtype=torch.float64)
     assert plan_groupby(10**6, 64, f64).method not in ("pallas", "rsum")
 
