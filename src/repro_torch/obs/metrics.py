@@ -27,7 +27,7 @@ import threading
 __all__ = [
     "METRICS_ENV", "enabled", "counter", "gauge", "histogram",
     "to_dict", "dump", "to_prometheus", "reset", "default_dump_path",
-    "DEFAULT_BUCKETS",
+    "DEFAULT_BUCKETS", "HOST_READS", "host_read",
 ]
 
 METRICS_ENV = "REPRO_METRICS"
@@ -161,6 +161,15 @@ def gauge(name: str, **labels) -> Gauge:
 
 def histogram(name: str, buckets=DEFAULT_BUCKETS, **labels) -> Histogram:
     return _get(Histogram, name, labels, buckets=buckets)
+
+
+HOST_READS = "repro_host_reads_total"
+
+
+def host_read(site: str) -> None:
+    """Count one read of a tensor's value by the host at ``site``: on a
+    card, a device-to-host copy that waits for the device's queue."""
+    counter(HOST_READS, site=site).inc()
 
 
 def reset() -> None:

@@ -1,12 +1,12 @@
-"""Zero-dependency span tracer with a no-op fast path (DESIGN.md §13.1).
+"""Span tracer with a no-op fast path (DESIGN.md §13.1).
 
 Design constraints, in order:
 
 1. **Disabled mode costs nothing.**  When ``REPRO_TRACE`` is unset (or
-   ``"0"``), no sink, buffer or lock is ever allocated; :func:`span` returns
-   a shared null context manager and :func:`event` is a single attribute
-   load + ``is None`` test, so the instrumented planner and GROUPBY paths
-   pay nothing measurable.
+   ``"0"``) and no torch profiler is active, no sink, buffer or lock is
+   ever allocated; :func:`span` returns a shared null context manager and
+   :func:`event` is a single attribute load + ``is None`` test, so the
+   instrumented planner and GROUPBY paths pay nothing measurable.
 2. **Honest clocks.**  Durations come from ``time.perf_counter_ns`` (the
    monotonic clock); each record also carries a wall-clock ``ts`` so traces
    from different processes can be laid side by side.
@@ -23,10 +23,14 @@ Record schema (one JSON object per line; the contract §13.2 relies on):
 
   {"kind": "span"|"event", "name": str, "ts": float unix seconds,
    "dur_ns": int (spans only), "span_id": int, "parent_id": int|null,
-   "depth": int, "thread": int, "attrs": {...}}
+   "root_id": int (the span_id of the outermost enclosing span, its own
+   when it has none), "depth": int, "thread": int, "attrs": {...}}
 
-Spans are host-clock records only; for device timelines use
-``torch.profiler`` around the same region.
+While a torch profiler is active (checked per span), every span also
+enters ``torch.profiler.record_function(name)``, whether or not
+``REPRO_TRACE`` is on: the profiler stamps it on the timeline of the
+device's kernels as a ``user_annotation``, nested with the torch
+operators and CUDA launches it contains.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ import json
 import os
 import threading
 import time
+
+from torch.autograd import profiler as _profiler
 
 __all__ = [
     "TRACE_ENV", "enabled", "configure", "disable",
@@ -61,6 +67,28 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+
+class _Annotation:
+    """Tracing off under an active profiler: the span is only the
+    profiler's ``record_function`` annotation."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = _profiler.record_function(self.name)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+    def set(self, **attrs):
+        return self
 
 
 class _TraceState:
@@ -150,8 +178,8 @@ def disable() -> None:
 class _Span:
     """A live span: times itself, tracks nesting, emits one record on exit."""
 
-    __slots__ = ("name", "attrs", "span_id", "parent_id", "depth",
-                 "_t0", "_ts")
+    __slots__ = ("name", "attrs", "span_id", "parent_id", "root_id",
+                 "depth", "_t0", "_ts", "_rf")
 
     def __init__(self, state: _TraceState, name: str, attrs: dict):
         self.name = name
@@ -159,6 +187,7 @@ class _Span:
         self.span_id = state.alloc_id()
         stack = state.stack()
         self.parent_id = stack[-1].span_id if stack else None
+        self.root_id = stack[0].root_id if stack else self.span_id
         self.depth = len(stack)
 
     def set(self, **attrs):
@@ -170,12 +199,18 @@ class _Span:
         st = _state
         if st is not None:
             st.stack().append(self)
+        self._rf = None
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self.name)
+            self._rf.__enter__()
         self._ts = time.time()
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         dur = time.perf_counter_ns() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
         st = _state
         if st is not None:
             stack = st.stack()
@@ -185,16 +220,19 @@ class _Span:
                 self.attrs["error"] = exc_type.__name__
             st.emit({"kind": "span", "name": self.name, "ts": self._ts,
                      "dur_ns": dur, "span_id": self.span_id,
-                     "parent_id": self.parent_id, "depth": self.depth,
+                     "parent_id": self.parent_id, "root_id": self.root_id,
+                     "depth": self.depth,
                      "thread": threading.get_ident(), "attrs": self.attrs})
         return False
 
 
 def span(name: str, **attrs):
-    """Context manager timing a named region; no-op when disabled."""
+    """Context manager timing a named region; with tracing off, only the
+    profiler's annotation while a profiler is active, else a no-op."""
     st = _state
     if st is None:
-        return _NULL_SPAN
+        return _Annotation(name) if _profiler._is_profiler_enabled \
+            else _NULL_SPAN
     return _Span(st, name, attrs)
 
 
@@ -204,9 +242,11 @@ def event(name: str, **attrs) -> None:
     if st is None:
         return
     stack = st.stack()
+    eid = st.alloc_id()
     st.emit({"kind": "event", "name": name, "ts": time.time(),
-             "span_id": st.alloc_id(),
+             "span_id": eid,
              "parent_id": stack[-1].span_id if stack else None,
+             "root_id": stack[0].root_id if stack else eid,
              "depth": len(stack), "thread": threading.get_ident(),
              "attrs": attrs})
 

@@ -9,6 +9,7 @@ execution methods, row orderings, chunk sizes and devices:
 from __future__ import annotations
 
 from repro_torch.core.types import ReproSpec
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ops.partial import (  # noqa: F401
     AGG_KINDS, AggSignature, PartialState, agg_name, finalize, partial_agg)
 
@@ -50,10 +51,12 @@ def groupby_agg(values, keys, num_segments: int, aggs=("sum",),
     to finalized (G,) tensors on ``device``; with ``return_table=True``, a
     ``(results, table)`` pair.
     """
-    state = partial_agg(values, keys, num_segments, aggs=aggs, spec=spec,
-                        method=method, chunk=chunk, levels=levels,
-                        check_finite=check_finite, device=device)
-    out = finalize(state)
+    with obs_trace.span("groupby", G=int(num_segments)):
+        state = partial_agg(values, keys, num_segments, aggs=aggs,
+                            spec=spec, method=method, chunk=chunk,
+                            levels=levels, check_finite=check_finite,
+                            device=device)
+        out = finalize(state)
     if return_table:
         return out, state.table
     return out

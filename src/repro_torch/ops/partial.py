@@ -314,12 +314,14 @@ def _check_finite(v: torch.Tensor, X: torch.Tensor, cols) -> None:
     """Fail loudly on ±inf/NaN inputs and on derived columns that overflow
     (e.g. ``var`` squaring a finite float32 past float32-max)."""
     bad = ~torch.isfinite(v)
+    obs_metrics.host_read("columns.finite_inputs")
     if bool(bad.any()):
         where = sorted(set(torch.nonzero(bad)[:, 1].tolist()))
         raise FloatingPointError(
             f"non-finite input values in column(s) {where}: the "
             "reproducibility contract covers finite inputs only")
     badx = ~torch.isfinite(X)
+    obs_metrics.host_read("columns.finite_columns")
     if bool(badx.any()):
         names = [_col_name(cols[j])
                  for j in sorted(set(torch.nonzero(badx)[:, 1].tolist()))]
@@ -351,11 +353,17 @@ def _resolve_levels(levels, X: torch.Tensor, e1: torch.Tensor,
     probe = aggregates.default_chunk("scatter", spec)
     stats = prescan.chunk_stats(X, probe, spec)              # (nblk, ncols)
     lo_a, hi_a = prescan.level_window(stats, e1[None, :], spec)
-    lo, hi = int(lo_a.min()), int(hi_a.max())
+    lo = int(lo_a.min())
+    obs_metrics.host_read("prescan.lo")
+    hi = int(hi_a.max())
+    obs_metrics.host_read("prescan.hi")
     if lo >= hi:
         lo, hi = 0, 1                            # degenerate: all-zero input
-    chunk_skip = hi - lo > 1 and bool(
-        lo_a.reshape(lo_a.shape[0], -1).amin(dim=1).amax() > lo)
+    chunk_skip = False
+    if hi - lo > 1:
+        chunk_skip = bool(
+            lo_a.reshape(lo_a.shape[0], -1).amin(dim=1).amax() > lo)
+        obs_metrics.host_read("prescan.chunk_skip")
     return (lo, hi), chunk_skip
 
 
@@ -369,8 +377,6 @@ def _emit_prescan_stats(n, ncols, spec: ReproSpec, lv, chunk_skip, plan):
                     chunk_skip=bool(chunk_skip), chunk=plan.chunk,
                     chunks=chunks)
     obs_metrics.counter("repro_groupby_rows_total").inc(int(n))
-    obs_metrics.counter("repro_groupby_calls_total",
-                        method=plan.method).inc()
     obs_metrics.counter("repro_groupby_levels_pruned_total").inc(
         spec.L - l_eff)
 
@@ -403,16 +409,18 @@ def _partial_agg(values, keys, num_segments: int, aggs, spec, method, chunk,
     dev = resolve_device(device)
     sig = AggSignature.build(aggs, num_segments, spec)
     spec = sig.spec
-    v = _as_matrix(values, spec, dev)
-    keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int32) \
-        .reshape(-1)
-    if v.shape[0] != keys.shape[0]:
-        raise ValueError("values and keys disagree on the row count")
     names, cols, plans = sig.compiled
-    X = _build_columns(v, cols, spec)
+    with obs_trace.span("groupby.columns", ncols=len(cols)) as sp:
+        v = _as_matrix(values, spec, dev)
+        keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int32) \
+            .reshape(-1)
+        if v.shape[0] != keys.shape[0]:
+            raise ValueError("values and keys disagree on the row count")
+        X = _build_columns(v, cols, spec)
+        if check_finite:
+            _check_finite(v, X, cols)
+        sp.set(n=int(X.shape[0]))
     ncols = X.shape[1]
-    if check_finite:
-        _check_finite(v, X, cols)
 
     if ncols:
         with obs_trace.span("groupby.prescan", n=int(X.shape[0]),
@@ -421,10 +429,12 @@ def _partial_agg(values, keys, num_segments: int, aggs, spec, method, chunk,
             lv, chunk_skip = _resolve_levels(levels, X, e1, spec)
             sp.set(levels=list(lv) if lv is not None else None,
                    chunk_skip=bool(chunk_skip))
-        plan = plan_groupby(int(X.shape[0]), num_segments, spec, ncols=ncols,
-                            backend=dev.type, method=method,
-                            chunk=chunk, levels=lv)
-        _emit_prescan_stats(X.shape[0], ncols, spec, lv, chunk_skip, plan)
+        with obs_trace.span("groupby.plan"):
+            plan = plan_groupby(int(X.shape[0]), num_segments, spec,
+                                ncols=ncols, backend=dev.type, method=method,
+                                chunk=chunk, levels=lv)
+            _emit_prescan_stats(X.shape[0], ncols, spec, lv, chunk_skip,
+                                plan)
         with obs_trace.span("groupby.aggregate", method=plan.method,
                             chunk=plan.chunk, buckets=plan.buckets,
                             n=int(X.shape[0]), G=int(num_segments)):
@@ -466,7 +476,6 @@ def merge(a: PartialState, b: PartialState) -> PartialState:
     """Bitwise-associative, commutative merge of two partial states:
     ``merge(partial(A), partial(B)) == partial(A ++ B)`` bit for bit."""
     _check_sig(a, b)
-    obs_metrics.counter("repro_partial_merges_total").inc()
     return PartialState(
         table=acc_mod.merge(a.table, b.table, a.spec),
         minv=_extreme(a.minv, b.minv, largest=False),
@@ -485,7 +494,6 @@ def merge_all(states) -> PartialState:
         _check_sig(states[0], s)
     if len(states) == 1:
         return states[0]
-    obs_metrics.counter("repro_partial_merges_total").inc(len(states) - 1)
     minv = functools.reduce(lambda x, y: _extreme(x, y, False),
                             [s.minv for s in states])
     maxv = functools.reduce(lambda x, y: _extreme(x, y, True),
@@ -511,6 +519,7 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     exact) then corrects.  float64: the host's IEEE square root.
     """
     if x.dtype != torch.float32:
+        obs_metrics.host_read("finalize.sqrt")
         return torch.from_numpy(np.sqrt(x.cpu().numpy())).to(x.device)
     xd = x.double()
     y = torch.sqrt(xd).float()
@@ -563,10 +572,10 @@ def finalize(state: PartialState) -> dict:
     names, cols, plans = sig.compiled
     with obs_trace.span("groupby.finalize"):
         sums = acc_mod.finalize(state.table, spec)           # (G, ncols)
-    mm = sig.minmax
-    mins = {j: state.minv[:, i] for i, j in enumerate(mm)}
-    maxs = {j: state.maxv[:, i] for i, j in enumerate(mm)}
-    return _finalize_plans(names, plans, sums, mins, maxs, spec)
+        mm = sig.minmax
+        mins = {j: state.minv[:, i] for i, j in enumerate(mm)}
+        maxs = {j: state.maxv[:, i] for i, j in enumerate(mm)}
+        return _finalize_plans(names, plans, sums, mins, maxs, spec)
 
 
 # ---------------------------------------------------------------------------

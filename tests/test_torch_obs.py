@@ -209,3 +209,102 @@ def test_audit_defaults_to_the_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         audit.main(["--worker", "groupby", "--out", str(tmp_path),
                     "--n", "64"])
+
+
+def _chrome_events(prof, tmp_path):
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("ph") == "X"]
+
+
+def test_spans_enter_the_profilers_timeline(tmp_path):
+    """Under a profiler the spans are ``user_annotation`` events, the
+    child inside its parent and the torch operators inside the child;
+    under ``REPRO_TRACE`` the records share their outermost span's id."""
+    x = torch.arange(64, dtype=torch.float32)
+    act = torch.profiler.ProfilerActivity
+    trace.disable()
+    with torch.profiler.profile(activities=[act.CPU]) as prof:
+        with trace.span("test.outer"):
+            with trace.span("test.inner") as sp:
+                assert sp.set(rows=1) is sp
+                (x * 2).sum()
+    events = _chrome_events(prof, tmp_path)
+    marks = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation"
+             and e["name"].startswith("test.")}
+    assert set(marks) == {"test.outer", "test.inner"}
+    outer, inner = marks["test.outer"], marks["test.inner"]
+
+    def within(a, b):
+        return b["ts"] <= a["ts"] and \
+            a["ts"] + a["dur"] <= b["ts"] + b["dur"]
+
+    assert within(inner, outer)
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e["name"] in ("aten::mul", "aten::sum")]
+    assert {op["name"] for op in ops} == {"aten::mul", "aten::sum"}
+    assert all(within(op, inner) for op in ops)
+
+    trace.configure(None)
+    try:
+        with torch.profiler.profile(activities=[act.CPU]) as prof:
+            with trace.span("test.outer"):
+                with trace.span("test.inner"):
+                    trace.event("test.point")
+            with trace.span("test.next"):
+                pass
+        records = trace.events()
+    finally:
+        trace.disable()
+    by = {r["name"]: r for r in records}
+    outer_id = by["test.outer"]["span_id"]
+    assert by["test.outer"]["root_id"] == outer_id
+    assert by["test.inner"]["root_id"] == outer_id
+    assert by["test.point"]["root_id"] == outer_id
+    assert by["test.next"]["root_id"] == by["test.next"]["span_id"]
+    names = {e["name"] for e in _chrome_events(prof, tmp_path)
+             if e.get("cat") == "user_annotation"}
+    assert {"test.outer", "test.inner", "test.next"} <= names
+
+
+def test_span_is_the_shared_null_span_when_off():
+    trace.disable()
+    assert trace.span("test.off", rows=3) is trace._NULL_SPAN
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert trace.span("test.off") is not trace._NULL_SPAN
+    assert trace.span("test.off") is trace._NULL_SPAN
+
+
+def _host_reads():
+    return {r["labels"]["site"]: r["value"]
+            for r in metrics.to_dict().get(metrics.HOST_READS, [])}
+
+
+def test_groupby_counts_its_host_reads():
+    """``levels="auto"`` reads the level window's two ends and, where it
+    spans more than one level, whether some chunk prunes more: 3 reads;
+    ``check_finite`` reads two more; a given window reads none."""
+    from repro_torch.ops import groupby_agg
+    gen = torch.Generator().manual_seed(5)
+    v = torch.randn(4096, 2, generator=gen) * \
+        torch.tensor([1.0, 1e-6]).expand(4096, 2)
+    v[:2048] *= 1e6
+    k = torch.randint(0, 9, (4096,), generator=gen)
+    aggs = [("sum", 0), ("mean", 1), "count"]
+
+    def reads(**kw):
+        before = _host_reads()
+        groupby_agg(v, k, 9, aggs, device="cpu", **kw)
+        after = _host_reads()
+        return {s: n - before.get(s, 0.0) for s, n in after.items()
+                if n != before.get(s, 0.0)}
+
+    assert reads() == {"prescan.lo": 1, "prescan.hi": 1,
+                       "prescan.chunk_skip": 1}
+    assert reads(check_finite=True) == {
+        "prescan.lo": 1, "prescan.hi": 1, "prescan.chunk_skip": 1,
+        "columns.finite_inputs": 1, "columns.finite_columns": 1}
+    assert reads(levels=None) == {}
