@@ -1,5 +1,6 @@
-"""Find a cell's configuration, traffic mix, table generator, reference and
-metric readers by the names ``BENCHMARK.json`` gives them.
+"""Find a cell's configuration, traffic mix, table generator, reference,
+program entry and metric readers by the names ``BENCHMARK.json`` and the
+configuration give them.
 
 Files are looked up under each of the benchmark's ``paths`` in turn, so a
 later change adds a configuration, a mix or a metric as new files and new
@@ -60,7 +61,7 @@ class Benchmark:
 
     def module(self, kind: str, name: str):
         """The Python file ``<kind>/<name>.py`` (a table generator, a
-        reference or a metric reader), loaded once."""
+        reference, a program entry or a metric reader), loaded once."""
         path = self.find(kind, name, ".py")
         mod = self._modules.get(path)
         if mod is None:
@@ -91,6 +92,12 @@ class Benchmark:
 
     def reference(self, config: dict):
         return self.module("reference", config["reference"])
+
+    def entry(self, config: dict):
+        """The program entry ``entries/<entry>.py`` that the configuration
+        names, or None where it names none (the harness's default)."""
+        return self.module("entries", config["entry"]) \
+            if "entry" in config else None
 
     def cell(self, name: str) -> Cell:
         w = _named(self.spec["workloads"], name, "workload")

@@ -8,10 +8,14 @@ Three numbers, each against the limit the configuration file states
   float32 at the reference's value, over every result of every group;
 * ``window_diff``: result values of the window's sampled answers (the
   first, two drawn from the seed, the last) whose bits differ from the
-  first answer's -- the guarantee "the same bits for every run";
+  first answer's -- the guarantee "the same bits for every run"; where the
+  cell runs as several ranks, also those of each other rank's first answer
+  -- "every card returns the same bits";
 * ``perm_diff``: result values whose bits differ between the window's first
   answer and the answer over a seeded permutation of the rows, run after
-  the window -- the guarantee "the same bits for any row order".
+  the window -- the guarantee "the same bits for any row order" (across
+  ranks, the permuted rows are dealt out again in equal shares: "and for
+  any split of the rows").
 
 A result name missing on one side, or a NaN or infinity where the reference
 has a number, reads as an infinite gap.
@@ -70,13 +74,16 @@ def bit_diff(a: dict, b: dict) -> int:
     return diff
 
 
-def compare(window: list, permuted: dict, ref: dict, limits: dict) -> dict:
+def compare(window: list, permuted: dict, ref: dict, limits: dict,
+            others=()) -> dict:
     """The numbers and their limits: ``{name: {"value", "limit"}}``.
-    ``window`` holds the window's sampled answers, first answer first."""
+    ``window`` holds the window's sampled answers, first answer first;
+    ``others`` the other ranks' first answers."""
     first = window[0]
     values = {
         "max_err_ulp": max(max_err_ulp(w, ref) for w in window),
-        "window_diff": sum(bit_diff(first, w) for w in window[1:]),
+        "window_diff": sum(bit_diff(first, w)
+                           for w in [*window[1:], *others]),
         "perm_diff": bit_diff(first, permuted),
     }
     return {k: {"value": values[k], "limit": limits[k]} for k in NAMES}

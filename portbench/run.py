@@ -7,12 +7,17 @@ Run it from the root of a checkout.  It prints information lines, then as
 its last line one JSON object (``correct``, ``attempted``, ``failed``,
 ``metrics``, ``device``, with ``--trace 1`` ``breakdown``, and ``checks``
 last: each number compared with its limit); the same numbers are the last
-lines of standard error.  Exit codes: 0 a result was printed (``correct``
-may be false); 2 no CUDA card, or fewer than the cell asks for, or no such
-cell; 3 the JAX package or JAX was loaded; 4 the program defines a kernel
-that ``hand_kernels/*.json`` does not name.  It writes only inside the
-checkout (``.portbench_cache/``: bytecode and kernel caches at fixed paths;
-the program's kernel build directory) and under ``TMPDIR``.
+lines of standard error.  A cell whose ``chips`` is above 1 runs as that
+many rank processes, one to a card, that call the program in lockstep
+(``ranks.py``); rank 0 prints the information lines, and this process the
+result.  Exit codes: 0 a result was printed (``correct`` may be false); 2
+no CUDA card, or fewer than the cell asks for, or no such cell; 3 the JAX
+package or JAX was loaded (in any rank); 4 the program defines a kernel
+that ``hand_kernels/*.json`` does not name; 5 a rank failed, exited early
+or hung past its collective timeout or its deadline, and every rank was
+killed.  It writes only inside the checkout (``.portbench_cache/``:
+bytecode and kernel caches at fixed paths; the program's kernel build
+directory) and under ``TMPDIR`` (the ranks' store).
 """
 import time
 
@@ -85,13 +90,21 @@ def main(argv=None) -> int:
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}"
               " -- no result", file=sys.stderr)
         return 2
+    from portbench import ranks
+    say = lambda s: print(s, flush=True)  # noqa: E731
     try:
-        result = harness.run_cell(cell, args.seed, args.seconds,
-                                  bool(args.trace), t0=T0,
-                                  say=lambda s: print(s, flush=True))
+        if cell.chips > 1:
+            result = ranks.launch(cell, args.seed, args.seconds,
+                                  bool(args.trace), t0=T0, say=say)
+        else:
+            result = harness.run_cell(cell, args.seed, args.seconds,
+                                      bool(args.trace), t0=T0, say=say)
     except harness.UnlistedKernels as exc:
         print(f"portbench: {exc} -- no result", file=sys.stderr)
         return 4
+    except ranks.RanksFailed as exc:
+        print(f"portbench: {exc} -- no result", file=sys.stderr)
+        return exc.code
     bad = harness.forbidden_modules()
     if bad:
         print(f"portbench: loaded {bad}: the benchmark runs the port alone "

@@ -207,29 +207,20 @@ def _pass_b(query, queries: int, dev: torch.device) -> list:
 
 
 def reading(run) -> Reading | None:
-    """Both passes over the run's resident table, once per run (cached on
-    the run); None without a traced stretch or a resident table."""
+    """Both passes over the run's resident table (``run.query``: the call
+    and its sync, made by every rank where there are several), once per
+    run (cached on the run); None without a traced stretch or a resident
+    table."""
     if getattr(run, _CACHE, None) is not None:
         return getattr(run, _CACHE)
-    if run.stretch is None or run.values is None:
+    if run.stretch is None or run.query is None:
         return None
-    from portbench import harness
-    entry = harness.program_entry(run.device)
-    aggs = [tuple(a) for a in run.config["aggregates"]]
-    cuda = run.device.type == "cuda"
-
-    def query():
-        out = entry(run.values, run.keys, run.groups, aggs)
-        if cuda:
-            torch.cuda.synchronize(run.device)
-        return out
-
-    n, records, delta = _pass_a(query)
+    n, records, delta = _pass_a(run.query)
     host: dict[str, float] = {}
     for r in records:
         if r["name"] in SPANS:
             host[r["name"]] = host.get(r["name"], 0.0) + r["dur_ns"] / 1e6
-    device = attribute(_pass_b(query, n, run.device), run.hand_kernels)
+    device = attribute(_pass_b(run.query, n, run.device), run.hand_kernels)
     res = Reading(
         passes=n, host_ms={k: v / n for k, v in host.items()},
         host_reads=(sum(delta.values()) / n if ROOT_SPAN in device.seen

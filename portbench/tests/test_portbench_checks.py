@@ -61,15 +61,16 @@ def order_dependent(values, keys, groups, aggs):
 
 
 class _Flaky:
-    """Every other query's answer altered: only the window's comparison of
-    its sampled answers can see it."""
+    """The set-up's two answers and the window's first right, every later
+    answer altered, so that every sampled answer differs from the first
+    whatever the timing."""
 
     def __init__(self):
         self.calls = 0
 
     def __call__(self, values, keys, groups, aggs):
         self.calls += 1
-        if self.calls % 2:
+        if self.calls <= 3:
             return _program()(values, keys, groups, aggs)
         return altered_answer(values, keys, groups, aggs)
 
