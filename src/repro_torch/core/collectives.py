@@ -41,6 +41,7 @@ import torch.distributed as dist
 from repro_torch.core import accumulator as acc_mod
 from repro_torch.core.accumulator import ReproAcc
 from repro_torch.core.types import ReproSpec
+from repro_torch.obs import metrics
 
 __all__ = [
     "max_axis_size", "all_reduce", "repro_psum", "repro_psum_scatter",
@@ -74,8 +75,10 @@ def _check_group(group, spec: ReproSpec) -> int:
 
 
 def all_reduce(t: torch.Tensor, op, group=None) -> torch.Tensor:
-    """``t`` reduced over ``group`` with ``op``, as a new tensor."""
+    """``t`` reduced over ``group`` with ``op``, as a new tensor (counted
+    in ``repro_collectives_total{op="all_reduce"}``)."""
     t = t.contiguous().clone()
+    metrics.collective("all_reduce", t.numel() * t.element_size())
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -88,13 +91,14 @@ def _global_e1(e1: torch.Tensor, groups) -> torch.Tensor:
 
 def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Sum over the group; rank i keeps the i-th of ``size`` equal slices
-    along ``dim``."""
+    along ``dim`` (counted as ``reduce_scatter``)."""
     size = dist.get_world_size(group)
     t = torch.movedim(t, dim, 0).contiguous()
     if t.shape[0] % size:
         raise ValueError(f"dimension {dim} of length {t.shape[0]} does not "
                          f"split over {size} processes")
     out = t.new_empty((t.shape[0] // size, *t.shape[1:]))
+    metrics.collective("reduce_scatter", t.numel() * t.element_size())
     dist.reduce_scatter_tensor(out, t, op=dist.ReduceOp.SUM, group=group)
     return torch.movedim(out, 0, dim)
 

@@ -27,7 +27,8 @@ import threading
 __all__ = [
     "METRICS_ENV", "enabled", "counter", "gauge", "histogram",
     "to_dict", "dump", "to_prometheus", "reset", "default_dump_path",
-    "DEFAULT_BUCKETS", "HOST_READS", "host_read",
+    "DEFAULT_BUCKETS", "HOST_READS", "host_read", "COLLECTIVES",
+    "COLLECTIVE_BYTES", "collective",
 ]
 
 METRICS_ENV = "REPRO_METRICS"
@@ -170,6 +171,17 @@ def host_read(site: str) -> None:
     """Count one read of a tensor's value by the host at ``site``: on a
     card, a device-to-host copy that waits for the device's queue."""
     counter(HOST_READS, site=site).inc()
+
+
+COLLECTIVES = "repro_collectives_total"
+COLLECTIVE_BYTES = "repro_collective_bytes_total"
+
+
+def collective(op: str, nbytes: int) -> None:
+    """Count one collective ``op`` of this process and its payload: the
+    bytes of the tensor it is given, from its shape alone (no sync)."""
+    counter(COLLECTIVES, op=op).inc()
+    counter(COLLECTIVE_BYTES, op=op).inc(nbytes)
 
 
 def reset() -> None:

@@ -29,6 +29,14 @@ Bit-identity across process counts rests on two facts:
 So :func:`sharded_groupby_agg` on every process equals ``groupby_agg`` over
 the concatenation of all processes' rows, byte for byte.  Each process
 passes its own rows; no padding is needed.
+
+Spans (``obs/trace.py``): :func:`sharded_groupby_agg` opens the root
+``groupby`` (attributes ``G``, ``world``), as ``groupby_agg`` does, with the
+stages of ``_partial_agg`` and ``finalize`` under it; the lattice's
+all-reduce runs in ``groupby.lattice`` (inside ``groupby.prescan``), and the
+merge -- the table's ``repro_psum``, MIN/MAX and the row count -- in
+``groupby.merge``.  Each collective is counted in
+``repro_collectives_total`` (``core/collectives.py``).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ import torch.distributed as dist
 from repro_torch.core import accumulator as acc_mod
 from repro_torch.core import collectives
 from repro_torch.core.types import ReproSpec
+from repro_torch.obs import trace as obs_trace
 from repro_torch.ops.partial import (PartialState, _from_key, _nan_pick,
                                      _order_key, _partial_agg, finalize)
 
@@ -84,19 +93,20 @@ def sharded_partial_agg(values, keys, num_segments: int, aggs=("sum",),
         # an empty shard admits the bottom of the lattice, like a shard of
         # zeros
         local = X if X.shape[0] else X.new_zeros((1, X.shape[1]))
-        return collectives.all_reduce(
-            acc_mod.required_e1(local, spec, axis=0), dist.ReduceOp.MAX,
-            group)
+        e1 = acc_mod.required_e1(local, spec, axis=0)
+        with obs_trace.span("groupby.lattice"):
+            return collectives.all_reduce(e1, dist.ReduceOp.MAX, group)
 
     st = _partial_agg(values, keys, num_segments, aggs, spec, method, chunk,
                       levels, False, device, lattice=lattice)
     table, minv, maxv = st.table, st.minv, st.maxv
-    if st.sig.ncols:
-        table = collectives.repro_psum(table, st.spec, group)
-    if minv.shape[1]:
-        minv = _global_extreme(minv, False, group)
-        maxv = _global_extreme(maxv, True, group)
-    rows = collectives.all_reduce(st.rows, dist.ReduceOp.SUM, group)
+    with obs_trace.span("groupby.merge"):
+        if st.sig.ncols:
+            table = collectives.repro_psum(table, st.spec, group)
+        if minv.shape[1]:
+            minv = _global_extreme(minv, False, group)
+            maxv = _global_extreme(maxv, True, group)
+        rows = collectives.all_reduce(st.rows, dist.ReduceOp.SUM, group)
     return PartialState(table=table, minv=minv, maxv=maxv, rows=rows,
                         sig=st.sig)
 
@@ -109,6 +119,8 @@ def sharded_groupby_agg(values, keys, num_segments: int, aggs=("sum",),
     ``finalize(sharded_partial_agg(...))``.  Returns the same dict on every
     process of ``group``, bit-identical to the single-device result over
     the concatenated rows for any process count and any split."""
-    return finalize(sharded_partial_agg(
-        values, keys, num_segments, aggs=aggs, spec=spec, group=group,
-        method=method, chunk=chunk, levels=levels, device=device))
+    with obs_trace.span("groupby", G=int(num_segments),
+                        world=dist.get_world_size(group)):
+        return finalize(sharded_partial_agg(
+            values, keys, num_segments, aggs=aggs, spec=spec, group=group,
+            method=method, chunk=chunk, levels=levels, device=device))

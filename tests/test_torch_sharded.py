@@ -5,11 +5,15 @@ dataset of ``tests/_groupby_shard_check.py`` (N = 10,007, G = 23, its 8
 aggregates, float32 L = 2, seed 42) and at float64, with each process's
 level window proved on its rows or the full window — and MIN/MAX keep the
 signed-zero and NaN rules of the port's single-device result for any split
-of the rows, an empty shard included.
+of the rows, an empty shard included.  Under the trace buffer, each call of
+``sharded_groupby_agg`` with TPC-H Q1's aggregates opens one ``groupby``
+root span, with ``groupby.lattice`` inside ``groupby.prescan`` and one
+``groupby.merge``, and counts 5 collectives on every rank.
 
 The ranks run in a fresh subprocess (``tests/_torch_dist.py``); this file
 is also their script: ``python tests/test_torch_sharded.py <world>
-<out_dir>``.  Rank r takes the r-th of ``world`` contiguous row ranges.
+<out_dir> [obs]``.  Rank r takes the r-th of ``world`` contiguous row
+ranges.
 """
 import functools
 
@@ -32,6 +36,13 @@ ZERO_AGGS = [("min", 0), ("max", 0), ("sum", 0), ("count",), ("min", 1),
              ("max", 1)]
 CASES = {"f32": (np.float32, "auto"), "f64": (np.float64, "auto"),
          "f32-onehot": (np.float32, "onehot")}
+# TPC-H Q1's aggregates over its 5 columns and 4 groups: 6 accumulator
+# columns, no MIN/MAX
+Q1_AGGS = [("sum", 0), ("sum", 1), ("sum", 3), ("sum", 4), ("mean", 0),
+           ("mean", 1), ("mean", 2), ("count",)]
+Q1_N, Q1_G, OBS_CALLS = 4_001, 4, 2
+# the lattice MAX; repro_psum's e1 MAX, k SUM and C SUM; the row count SUM
+COLLECTIVES_PER_CALL = 5
 
 
 def _shard_check_data():
@@ -103,6 +114,42 @@ def _rank(rank, world):
     return out
 
 
+def _q1_data():
+    rng = np.random.default_rng(11)
+    vals = rng.lognormal(3.0, 1.0, (Q1_N, 5)).astype(np.float32)
+    return vals, rng.integers(0, Q1_G, Q1_N).astype(np.int32)
+
+
+def _obs_rank(rank, world):
+    """Q1's aggregates, called twice under the trace buffer: the span
+    records, the collectives counted and each answer's bytes, beside
+    ``groupby_agg`` over all rows."""
+    from repro_torch.obs import metrics, trace
+
+    def collectives():
+        return sum(r["value"] for r in
+                   metrics.to_dict().get(metrics.COLLECTIVES, []))
+
+    vals, keys = _q1_data()
+    rows = _split(Q1_N, world, rank)
+    before = collectives()
+    trace.configure(None)
+    try:
+        answers = [_hex(sharded_groupby_agg(
+            torch.from_numpy(vals[rows]), torch.from_numpy(keys[rows]), Q1_G,
+            Q1_AGGS, device="cpu")) for _ in range(OBS_CALLS)]
+        spans = [{k: r[k] for k in ("name", "span_id", "parent_id",
+                                    "root_id")}
+                 | {"attrs": r["attrs"] if r["name"] == "groupby" else {}}
+                 for r in trace.events() if r["kind"] == "span"]
+    finally:
+        trace.disable()
+    return {"spans": spans, "collectives": collectives() - before,
+            "answers": answers,
+            "whole": _hex(groupby_agg(vals, keys, Q1_G, Q1_AGGS,
+                                      device="cpu"))}
+
+
 @functools.lru_cache(maxsize=None)
 def _reference():
     """The JAX package's groupby_agg over all rows, and the port's
@@ -156,6 +203,27 @@ def test_sharded_equals_single_device_reference(world, tmp_path):
                                   np.float32)[2])
 
 
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_spans_and_collectives_counter(world, tmp_path):
+    ranks = _torch_dist.run_ranks(__file__, world, tmp_path, extra=("obs",))
+    for got in ranks:
+        assert got["answers"] == [got["whole"]] * OBS_CALLS
+        assert got["collectives"] == COLLECTIVES_PER_CALL * OBS_CALLS
+        by_id = {s["span_id"]: s for s in got["spans"]}
+        roots = [s for s in got["spans"] if s["parent_id"] is None]
+        assert [s["name"] for s in roots] == ["groupby"] * OBS_CALLS
+        assert all(s["attrs"] == {"G": Q1_G, "world": world} for s in roots)
+        for root in roots:
+            inside = [s for s in got["spans"]
+                      if s["root_id"] == root["span_id"]]
+            merges = [s for s in inside if s["name"] == "groupby.merge"]
+            lattices = [s for s in inside if s["name"] == "groupby.lattice"]
+            assert [by_id[s["parent_id"]]["name"] for s in merges] \
+                == ["groupby"]
+            assert [by_id[s["parent_id"]]["name"] for s in lattices] \
+                == ["groupby.prescan"]
+
+
 def test_sharded_needs_matching_rows():
     with pytest.raises(ValueError, match="row count"):
         sharded_partial_agg(torch.ones(3), torch.zeros(2, dtype=torch.int32),
@@ -163,4 +231,5 @@ def test_sharded_needs_matching_rows():
 
 
 if __name__ == "__main__":
-    _torch_dist.main(_rank)
+    import sys
+    _torch_dist.main(_obs_rank if sys.argv[3:] == ["obs"] else _rank)
